@@ -2,10 +2,12 @@
 
 Replaces the reference's native DP cores -- hifiasm's ksw2_extz2_sse.c
 (SSE-vectorized extension alignment), minimap2's extension stage, and edlib's
-edit distance (`remove_redundancy.py:57-63`) -- with one batched,
-VPU-vectorized formulation.
+edit distance (`remove_redundancy.py:57-63`) -- with one batched
+formulation: a hand-written CUDA kernel on the card (kernel B1,
+ops/align_cuda.py + csrc/banded_align.cu) and a plain PyTorch row loop beside
+it (banded_align_batch), which the CPU runs and the kernel is held to.
 
-Design (TPU-first): the band is stored by diagonal offset, so each DP row is a
+Design: the band is stored by diagonal offset, so each DP row is a
 fixed-width W vector; the horizontal (gap-in-query) dependency is resolved
 with a *cummax prefix scan* instead of a sequential inner loop, making every
 row update a pure vector op.  Valid when gap_open <= gap_extend <= 0 (opening
@@ -19,19 +21,17 @@ Row recurrence in band coordinates (k indexes diagonal j - i - d_lo):
     E[k]    = cummax_{k'<k}(G[k'] - ext*k') + open + ext*(k-1)  # target gap (D)
     H[k]    = max(G, E)
 
-Direction bits (4 per cell, packed uint8) are streamed to HBM and traced back
-on host to produce BAM CIGAR ops.
+Direction bits (4 per cell, packed uint8) are written to device memory and
+traced back on host to produce BAM CIGAR ops.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
-import jax.numpy as jnp
 import numpy as np
+import torch
 
 from focalsv_tpu.io import bam as bamio
+from focalsv_tpu_torch.device import resolve_device
 
 NEG = -(1 << 28)
 
@@ -128,21 +128,16 @@ def _runlength(ops):
 
 
 # ---------------------------------------------------------------------------
-# JAX banded batch kernel (scan formulation; jit/shard-friendly)
+# plain PyTorch banded batch DP (the plain version of kernel B1)
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("band", "max_rows", "match", "mismatch", "gap_open",
-                     "gap_extend", "store_dirs"),
-)
 def banded_align_batch(
-    q: jax.Array,          # (B, Lq) uint8, PAD beyond length
-    q_len: jax.Array,      # (B,) int32
-    t: jax.Array,          # (B, Lt) uint8
-    t_len: jax.Array,      # (B,) int32
-    d_lo: jax.Array,       # (B,) int32 band low diagonal (j - i >= d_lo)
+    q: torch.Tensor,       # (B, Lq) uint8, PAD beyond length
+    q_len: torch.Tensor,   # (B,) int32
+    t: torch.Tensor,       # (B, Lt) uint8
+    t_len: torch.Tensor,   # (B,) int32
+    d_lo: torch.Tensor,    # (B,) int32 band low diagonal (j - i >= d_lo)
     band: int = 256,
     max_rows: int | None = None,
     match: int = 2,
@@ -151,79 +146,87 @@ def banded_align_batch(
     gap_extend: int = -2,
     store_dirs: bool = True,
 ):
-    """Batched banded affine global alignment.
+    """Batched banded affine global alignment, one row at a time.
 
-    Returns (score (B,), dirs (B, max_rows+1, band) uint8 or None).
-    The band for row i covers target columns j in [i + d_lo, i + d_lo + band).
-    Alignment is global in both sequences; callers choose d_lo so that the
-    (q_len, t_len) endpoint lies in-band (e.g. d_lo = (t_len - q_len - band//2)).
+    Returns (score (B,) int32, dirs (B, max_rows, band) uint8 or None) on
+    the tensors' device.  The band for row i covers target columns j in
+    [i + d_lo, i + d_lo + band).  Alignment is global in both sequences;
+    callers choose d_lo so that the (q_len, t_len) endpoint lies in-band
+    (e.g. d_lo = (t_len - q_len - band//2)).  The batch axis is written
+    out where the reference vmaps, and the row loop replaces its lax.scan.
     """
+    dev = q.device
+    i32 = torch.int32
     B, Lq = q.shape
+    Lt = t.shape[1]
     M = max_rows if max_rows is not None else Lq
     W = band
+    ks = torch.arange(W, dtype=i32, device=dev)[None, :]
+    qn = q_len.to(device=dev, dtype=i32)[:, None]
+    tn = t_len.to(device=dev, dtype=i32)[:, None]
+    dlo = d_lo.to(device=dev, dtype=i32)[:, None]
+    neg = torch.full((B, 1), NEG, dtype=i32, device=dev)
+    ext_ks = gap_extend * ks
+    e_off = (gap_open - gap_extend) + ext_ks
+    ext_left = gap_extend * (ks - 1)
 
-    ks = jnp.arange(W, dtype=jnp.int32)
-
-    # To read H at row qn (qn may differ per batch item), redo with carry capture:
-    def one_full(qi, qn, ti, tn, dlo):
-        j0 = dlo + ks
-        h0 = jnp.where(
-            j0 == 0, 0,
-            jnp.where(j0 > 0, gap_open + gap_extend * (j0 - 1), NEG),
-        ).astype(jnp.int32)
-        h0 = jnp.where((j0 >= 0) & (j0 <= tn), h0, NEG)
-        e0 = jnp.where(j0 > 0, h0, NEG)
-        f0 = jnp.full((W,), NEG, jnp.int32)
-        t_pad = jnp.concatenate([ti, jnp.full((W + 1,), 255, ti.dtype)])
-
-        def row(carry, i):
-            h_prev, e_prev, f_prev, h_at_end = carry
-            qc = qi[jnp.clip(i - 1, 0, qi.shape[0] - 1)]
-            j = i + dlo + ks
-            jv = (j >= 1) & (j <= tn) & (i <= qn)
-            # the j==0 column (pure leading query insertions) is F-only
-            jz = (j == 0) & (i <= qn)
-            tc = t_pad[jnp.clip(j - 1, 0, t_pad.shape[0] - 1)]
-            sub = jnp.where((qc == tc) & (qc < 4), match, mismatch)
-            diag = h_prev + sub
-            h_up = jnp.concatenate([h_prev[1:], jnp.array([NEG], jnp.int32)])
-            f_up = jnp.concatenate([f_prev[1:], jnp.array([NEG], jnp.int32)])
-            f_open = h_up + gap_open
-            f_ext = f_up + gap_extend
-            f = jnp.maximum(f_open, f_ext)
-            g = jnp.maximum(diag, f)
-            a = jax.lax.cummax(g - gap_extend * ks)
-            a_shift = jnp.concatenate([jnp.array([NEG], jnp.int32), a[:-1]])
-            # gap of length g costs open + ext*(g-1): the -ext corrects the scan
-            e = a_shift + (gap_open - gap_extend) + gap_extend * ks
-            h = jnp.maximum(g, e)
-            h = jnp.where(jv, h, jnp.where(jz, f, NEG))
-            e2 = jnp.where(jv, e, NEG)
-            f2 = jnp.where(jv | jz, f, NEG)
-            d = jnp.where(h == diag, 0, jnp.where(h == e, 1, 2)).astype(jnp.uint8)
-            d = d | jnp.where(f_ext >= f_open, DIR_F_EXT, 0).astype(jnp.uint8)
-            g_left = jnp.concatenate([jnp.array([NEG], jnp.int32), g[:-1]])
-            e_ext_bit = (a_shift > g_left - gap_extend * (ks - 1)).astype(jnp.uint8)
-            d = d | (e_ext_bit * DIR_E_EXT)
-            dz = (jnp.uint8(2) |
-                  jnp.where(f_ext >= f_open, DIR_F_EXT, 0).astype(jnp.uint8))
-            d = jnp.where(jv, d, jnp.where(jz, dz, 0))
-            h_at_end = jnp.where(i == qn, h, h_at_end)
-            return (h, e2, f2, h_at_end), (d if store_dirs else 0)
-
-        h_at_end0 = jnp.where(qn == 0, h0, jnp.full((W,), NEG, jnp.int32))
-        (_, _, _, h_end), dirs = jax.lax.scan(
-            row, (h0, e0, f0, h_at_end0), jnp.arange(1, M + 1, dtype=jnp.int32))
-        k_end = tn - qn - dlo
-        score = jnp.where(
-            (k_end >= 0) & (k_end < W),
-            h_end[jnp.clip(k_end, 0, W - 1)], NEG)
-        return score, dirs
-
-    scores, dirs = jax.vmap(one_full)(q, q_len, t, t_len, d_lo)
-    if store_dirs:
-        return scores, dirs
-    return scores, None
+    j0 = dlo + ks
+    h = torch.where(j0 == 0, 0,
+                    torch.where(j0 > 0, gap_open + gap_extend * (j0 - 1),
+                                NEG)).to(i32)
+    h = torch.where((j0 >= 0) & (j0 <= tn), h, NEG)
+    f = torch.full((B, W), NEG, dtype=i32, device=dev)
+    h_end = torch.where(qn == 0, h, NEG)
+    dirs = (torch.zeros((B, M, W), dtype=torch.uint8, device=dev)
+            if store_dirs else None)
+    # t[j - 1] of every row: row i reads tshift[:, i-1 : i-1+W]; an index
+    # below 0 clamps to t[0] and one past the target reads the pad 255
+    t_pad = torch.cat([t, torch.full((B, W + 1), 255, dtype=t.dtype,
+                                     device=dev)], dim=1)
+    xs = torch.arange(M + W, dtype=i32, device=dev)[None, :] + dlo
+    tshift = torch.gather(t_pad, 1, xs.clamp(0, Lt + W).long()).to(i32)
+    qi = q.to(i32)
+    q_acgt = qi < 4
+    # rows past every q_len are off the band: no state to carry, dirs 0
+    rows = min(M, int(qn.max())) if B else 0
+    for i in range(1, rows + 1):
+        r = min(max(i - 1, 0), Lq - 1)
+        qc = qi[:, r : r + 1]
+        j = (i + dlo) + ks
+        live = i <= qn
+        jv = (j >= 1) & (j <= tn) & live
+        # the j==0 column (pure leading query insertions) is F-only
+        jz = (j == 0) & live
+        tc = tshift[:, i - 1 : i - 1 + W]
+        sub = torch.where((qc == tc) & q_acgt[:, r : r + 1], match, mismatch)
+        diag = h + sub
+        f_open = torch.cat([h[:, 1:], neg], dim=1) + gap_open
+        f_ext = torch.cat([f[:, 1:], neg], dim=1) + gap_extend
+        f_new = torch.maximum(f_open, f_ext)
+        g = torch.maximum(diag, f_new)
+        a = torch.cummax(g - ext_ks, dim=1).values
+        a_shift = torch.cat([neg, a[:, :-1]], dim=1)
+        # gap of length g costs open + ext*(g-1): the -ext corrects the scan
+        e = a_shift + e_off
+        h_new = torch.where(jv, torch.maximum(g, e),
+                            torch.where(jz, f_new, NEG))
+        if store_dirs:
+            f_bit = torch.where(f_ext >= f_open, DIR_F_EXT, 0)
+            d = torch.where(h_new == diag, 0,
+                            torch.where(h_new == e, 1, 2)) | f_bit
+            g_left = torch.cat([neg, g[:, :-1]], dim=1)
+            d = d | torch.where(a_shift > g_left - ext_left, DIR_E_EXT, 0)
+            d = torch.where(jv, d, torch.where(jz, 2 | f_bit, 0))
+            dirs[:, i - 1] = d
+        h_end = torch.where(qn == i, h_new, h_end)
+        h = h_new
+        f = torch.where(jv | jz, f_new, NEG)
+    k_end = tn - qn - dlo
+    in_band = (k_end >= 0) & (k_end < W)
+    score = torch.where(
+        in_band, torch.gather(h_end, 1, k_end.clamp(0, W - 1).long()),
+        NEG)[:, 0]
+    return score, dirs
 
 
 def traceback(
@@ -265,21 +268,23 @@ def traceback(
     return _runlength(ops)
 
 
-PALLAS_MAX_BAND = 2048   # band state is VMEM-resident: (W, 128) i32 x3 plus
-                         # the dirs chunk must fit the ~16 MB scoped limit
-
-
 def banded_align(q, q_len, t, t_len, d_lo, band=256, store_dirs=True, **scoring):
-    """Backend-dispatching banded DP: the Pallas lane-batched kernel on TPU
-    (ops/align_pallas.py, ~10x the XLA scan version), lax.scan elsewhere
-    (and on TPU for bands too wide for VMEM-resident state)."""
-    if (store_dirs and band % 8 == 0 and band <= PALLAS_MAX_BAND
-            and jax.default_backend() not in ("cpu",)):
-        from focalsv_tpu.ops.align_pallas import banded_align_batch_pallas
-        return banded_align_batch_pallas(q, q_len, t, t_len, d_lo,
-                                         band=band, **scoring)
+    """Device-dispatching banded DP: kernel B1 (ops/align_cuda.py) for CUDA
+    tensors, at every band width and with or without dirs; the plain
+    version for CPU tensors."""
+    if q.is_cuda:
+        from focalsv_tpu_torch.ops.align_cuda import banded_align_batch_cuda
+        return banded_align_batch_cuda(q, q_len, t, t_len, d_lo, band=band,
+                                       store_dirs=store_dirs, **scoring)
     return banded_align_batch(q, q_len, t, t_len, d_lo, band=band,
                               store_dirs=store_dirs, **scoring)
+
+
+def to_device(dev, *arrays):
+    """numpy arrays -> tensors on ``dev`` (the kernel takes contiguous
+    uint8 sequences and int32 lengths)."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
 
 
 def _pad_bucket(x: np.ndarray, lo: int = 64) -> np.ndarray:
@@ -302,65 +307,6 @@ def band_bucket(need: int, lo: int = 128) -> int:
     while b < need:
         b *= 4
     return b
-
-
-@functools.partial(jax.jit, static_argnames=("band", "max_rows"))
-def traceback_device(dirs, q_len, t_len, d_lo, band: int, max_rows: int):
-    """On-device traceback: walks the direction bits with a vmapped
-    while_loop and emits the op string (0=M, 1=D, 2=I, 255=end) -- so the
-    large (M, W) dirs arrays never leave the device; only ~(2M) bytes of ops
-    transfer to the host.  Mirrors ops/align.py::traceback exactly."""
-    W = band
-    M = max_rows
-    BUF = 2 * M + W + 8
-
-    def one(d, qn, tn, dlo):
-        ops0 = jnp.full((BUF,), 255, jnp.uint8)
-
-        def cond(c):
-            i, j, state, n, ops = c
-            return ((i > 0) | (j > 0)) & (n < BUF)
-
-        def body(c):
-            i, j, state, n, ops = c
-            k = j - i - dlo
-            in_band = (k >= 0) & (k < W) & (i >= 1)
-            p = jnp.where(in_band,
-                          d[jnp.clip(i - 1, 0, M - 1),
-                            jnp.clip(k, 0, W - 1)].astype(jnp.int32), 0)
-            h2 = p & DIR_H_MASK
-            # faithful casing of the host traceback loop:
-            caseA = i == 0                                   # forced D
-            caseB = (~caseA) & (j == 0)                      # forced I
-            interior = (~caseA) & (~caseB)
-            caseC0 = interior & (state == 0) & (h2 == 0)     # diag -> M
-            caseC1 = interior & (state == 0) & (h2 != 0)     # switch state
-            caseD = interior & (state == 1)                  # D, maybe extend
-            caseE = interior & (state == 2)                  # I, maybe extend
-            emitM = caseC0
-            emitD = caseA | caseD
-            emitI = caseB | caseE
-            code = jnp.where(emitM, 0, jnp.where(emitD, 1, 2)).astype(jnp.uint8)
-            do_emit = emitM | emitD | emitI
-            ops = jnp.where(do_emit, ops.at[jnp.clip(n, 0, BUF - 1)].set(code),
-                            ops)
-            n = n + do_emit.astype(jnp.int32)
-            i = i - (emitM | emitI).astype(jnp.int32)
-            j = j - (emitM | emitD).astype(jnp.int32)
-            state = jnp.where(
-                caseC1, h2,
-                jnp.where(caseD, jnp.where((p & DIR_E_EXT) != 0, 1, 0),
-                          jnp.where(caseE, jnp.where((p & DIR_F_EXT) != 0, 2, 0),
-                                    state)))
-            return (i, j, state, n, ops)
-
-        i0 = qn.astype(jnp.int32)
-        j0 = tn.astype(jnp.int32)
-        out = jax.lax.while_loop(cond, body,
-                                 (i0, j0, jnp.int32(0), jnp.int32(0), ops0))
-        return out[4], out[3]
-
-    return jax.vmap(one)(dirs, q_len, t_len, d_lo)
 
 
 def ops_to_cigar(ops: np.ndarray, n: int) -> list[tuple[int, int]]:
@@ -413,21 +359,13 @@ def banded_align_pair(q, t, band=256, match=2, mismatch=-4, gap_open=-4,
             cig = traceback(dirs, len(q), len(t), d_lo)
             return score, cig
     qp, tp = _pad_bucket(q), _pad_bucket(t)
+    qd, qnd, td, tnd, dld = to_device(
+        resolve_device(), qp[None], np.array([len(q)], np.int32), tp[None],
+        np.array([len(t)], np.int32), np.array([d_lo], np.int32))
     scores, dirs = banded_align(
-        qp[None], np.array([len(q)], np.int32),
-        tp[None], np.array([len(t)], np.int32),
-        np.array([d_lo], np.int32), band=band, match=match,
-        mismatch=mismatch, gap_open=gap_open, gap_extend=gap_extend)
-    if jax.default_backend() not in ("cpu",):
-        # keep the large dirs array on-device; only ~2M bytes of op string
-        # cross the (possibly remote) host link
-        ops_dev, n_dev = traceback_device(
-            dirs, np.array([len(q)], np.int32),
-            np.array([len(t)], np.int32), np.array([d_lo], np.int32),
-            band=band, max_rows=qp.shape[0])
-        return int(scores[0]), ops_to_cigar(np.asarray(ops_dev[0]),
-                                            int(n_dev[0]))
-    cig = traceback(np.asarray(dirs[0]), len(q), len(t), d_lo)
+        qd, qnd, td, tnd, dld, band=band, match=match, mismatch=mismatch,
+        gap_open=gap_open, gap_extend=gap_extend)
+    cig = traceback(dirs[0].cpu().numpy(), len(q), len(t), d_lo)
     return int(scores[0]), cig
 
 
@@ -455,10 +393,12 @@ def edit_similarity(a: np.ndarray, b: np.ndarray, band: int = 128) -> float:
     band = max(band, band_bucket(abs(la - lb) + 16))
     d_lo = (lb - la) // 2 - band // 2
     d_lo = int(np.clip(d_lo, lb - la - band + 1, 0))
-    scores, _ = banded_align_batch(
-        _pad_bucket(np.asarray(a, np.uint8))[None], np.array([la], np.int32),
-        _pad_bucket(np.asarray(b, np.uint8))[None], np.array([lb], np.int32),
-        np.array([d_lo], np.int32), band=band,
-        match=0, mismatch=-1, gap_open=-1, gap_extend=-1, store_dirs=False)
+    args = to_device(
+        resolve_device(), _pad_bucket(np.asarray(a, np.uint8))[None],
+        np.array([la], np.int32), _pad_bucket(np.asarray(b, np.uint8))[None],
+        np.array([lb], np.int32), np.array([d_lo], np.int32))
+    scores, _ = banded_align(
+        *args, band=band, match=0, mismatch=-1, gap_open=-1, gap_extend=-1,
+        store_dirs=False)
     dist = -int(scores[0])
     return 1.0 - dist / max(la, lb)

@@ -1,17 +1,18 @@
 """Cross-thread batching executor for banded-DP jobs.
 
-The Pallas DP kernel processes 128 alignment pairs per grid step
-(ops/align_pallas.py), but the pipeline's aligner naturally produces one gap
-fill at a time.  This module is the scheduler in between: worker threads
+The CUDA DP kernel runs one thread block per alignment pair
+(ops/align_cuda.py), so a batch of pairs fills the card's SMs, but the
+pipeline's aligner naturally produces one gap fill at a time.  This module is the scheduler in between: worker threads
 submit (query, target, band) jobs and block; a dispatcher groups jobs with
 identical bucketed shapes/scoring, pads them into one device batch, launches
 a single `banded_align` call, and resolves per-job (score, dirs) futures.
 Tracebacks stay in the calling threads so the dispatcher never becomes
 host-bound.
 
-This is the TPU-side answer to the reference's process-pool scheduling (each
-joblib worker owning a whole native tool run): instead of N processes x 1
-alignment, one device x N-wide alignment batches.
+This is the device-side answer to the reference's process-pool scheduling
+(each joblib worker owning a whole native tool run): instead of N processes
+x 1 alignment, one device x N-wide alignment batches.  A batch that fails
+on the device raises in every job waiting on it.
 
 Usage:
     with dp_batching(max_wait_ms=2.0):
@@ -27,6 +28,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from focalsv_tpu_torch.device import resolve_device
 from focalsv_tpu_torch.ops import align as alignops
 
 _active: "DPBatcher | None" = None
@@ -42,6 +44,7 @@ class _Job:
     event: threading.Event = field(default_factory=threading.Event)
     score: int | None = None
     dirs: np.ndarray | None = None
+    error: BaseException | None = None
 
 
 # native banded-DP throughput for the latency/compute routing decision;
@@ -84,8 +87,9 @@ def _calibrate_native() -> float:
 
 class DPBatcher:
     def __init__(self, max_batch: int = 128, max_wait_ms: float = 2.0,
-                 init_rt_ms: float | None = None):
+                 init_rt_ms: float | None = None, device=None):
         import os
+        self.device = resolve_device(device)
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
         self.q: queue.Queue[_Job | None] = queue.Queue()
@@ -124,6 +128,10 @@ class DPBatcher:
         job.t_len = len(t)
         self.q.put(job)
         job.event.wait()
+        if job.error is not None:
+            raise RuntimeError(
+                f"batched DP failed on {self.device} (key={job.key})"
+            ) from job.error
         return job.score, job.dirs
 
     # -- dispatcher ---------------------------------------------------------
@@ -159,7 +167,7 @@ class DPBatcher:
 
     def _run_batch(self, jobs: list[_Job]):
         import time
-        (Lq, Lt, band, match, mismatch, gap_open, gap_extend) = jobs[0].key
+        (_, _, band, match, mismatch, gap_open, gap_extend) = jobs[0].key
         B = len(jobs)
         q = np.stack([j.q for j in jobs])
         t = np.stack([j.t for j in jobs])
@@ -169,31 +177,28 @@ class DPBatcher:
         try:
             t0 = time.perf_counter()
             scores, dirs = alignops.banded_align(
-                q, q_len, t, t_len, d_lo, band=band, match=match,
-                mismatch=mismatch, gap_open=gap_open, gap_extend=gap_extend,
-                store_dirs=True)
-            scores = np.asarray(scores)
-            dirs = np.asarray(dirs)
+                *alignops.to_device(self.device, q, q_len, t, t_len, d_lo),
+                band=band, match=match, mismatch=mismatch,
+                gap_open=gap_open, gap_extend=gap_extend, store_dirs=True)
+            scores = scores.cpu().numpy()
+            dirs = dirs.cpu().numpy()
             rt = time.perf_counter() - t0
-            # first batch per shape includes the XLA compile -- don't let it
-            # poison the round-trip estimate
-            if self.n_batches > 0 and not self._pin_rt:
-                self.rt_ema = 0.7 * self.rt_ema + 0.3 * rt
-            for i, j in enumerate(jobs):
-                j.score = int(scores[i])
-                j.dirs = dirs[i]
-                j.event.set()
-            self.n_batches += 1
-            self.n_jobs += B
-        except Exception:
-            import logging
-            logging.getLogger("focalsv_tpu.batch_executor").exception(
-                "batched DP failed for %d jobs (key=%s); resolving with NEG",
-                len(jobs), jobs[0].key)
+        except BaseException as exc:
+            # no stand-in result: every waiting job raises this failure
             for j in jobs:
-                j.score = alignops.NEG
-                j.dirs = np.zeros((Lq, band), np.uint8)
+                j.error = exc
                 j.event.set()
+            return
+        # the first batch includes the kernel build -- don't let it poison
+        # the round-trip estimate
+        if self.n_batches > 0 and not self._pin_rt:
+            self.rt_ema = 0.7 * self.rt_ema + 0.3 * rt
+        for i, j in enumerate(jobs):
+            j.score = int(scores[i])
+            j.dirs = dirs[i]
+            j.event.set()
+        self.n_batches += 1
+        self.n_jobs += B
 
     def shutdown(self):
         self.q.put(None)
@@ -206,7 +211,7 @@ def get_active() -> DPBatcher | None:
 
 @contextlib.contextmanager
 def dp_batching(max_batch: int = 128, max_wait_ms: float = 2.0,
-                init_rt_ms: float | None = None):
+                init_rt_ms: float | None = None, device=None):
     """Activate cross-thread DP batching for the enclosed block.
 
     init_rt_ms seeds the round-trip estimate that routes small jobs to the
@@ -215,7 +220,7 @@ def dp_batching(max_batch: int = 128, max_wait_ms: float = 2.0,
     with _lock:
         prev = _active
         batcher = DPBatcher(max_batch=max_batch, max_wait_ms=max_wait_ms,
-                            init_rt_ms=init_rt_ms)
+                            init_rt_ms=init_rt_ms, device=device)
         _active = batcher
     try:
         yield batcher

@@ -1,12 +1,12 @@
 """CLI entry mirroring the reference's `focalsv.py` interface (:16-34).
 
-    focalsv-tpu --bam_file in.bam --ref_file ref.fa --out_dir out \\
+    focalsv-tpu-torch --bam_file in.bam --ref_file ref.fa --out_dir out \\
         --data_type HIFI [--target_bed regions.bed | -S start -E end] \\
         [--chr_num 21 | --chr_num 0 for all] [--auto --prior_file prior.vcf]
 
-Differences by design: one process drives every region on the attached TPU
-mesh (no per-chromosome SLURM jobs); `--auto` replaces the separate
-0_define_region.py invocation.
+Differences by design: one process drives every region on the attached GPU
+(no per-chromosome SLURM jobs); `--auto` replaces the separate
+0_define_region.py invocation.  The flags are those of `focalsv-tpu`.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="focalsv-tpu",
-        description="TPU-native region-based SV assembly & refinement",
+        prog="focalsv-tpu-torch",
+        description="GPU region-based SV assembly & refinement (PyTorch)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("--bam_file", "-bam", required=True)
     p.add_argument("--ref_file", "-r", required=True)
@@ -43,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--execution", choices=["device", "host"], default=None,
                    help="override the region execution mode")
     p.add_argument("--device_trace", action="store_true",
-                   help="record a JAX profiler trace to out_dir/log/trace "
-                        "(view in TensorBoard/Perfetto)")
+                   help="record a torch.profiler trace to "
+                        "out_dir/log/trace (view in Perfetto)")
     return p
 
 

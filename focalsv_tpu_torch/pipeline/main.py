@@ -104,24 +104,38 @@ class ChromosomeResult:
     seconds: float = 0.0
 
 
-def _dp_batching_enabled(cfg: PipelineConfig) -> bool:
-    """Cross-thread DP batching: explicit flag wins, else on for accelerator
-    backends (on CPU the native host kernel beats a fake device round-trip)."""
+def _dp_batching_enabled(cfg: PipelineConfig, device) -> bool:
+    """Cross-thread DP batching: explicit flag wins, else on for CUDA
+    (on CPU the native host kernel beats a fake device round-trip)."""
     if cfg.execution.dp_batching is not None:
         return cfg.execution.dp_batching
-    import jax
-    return jax.default_backend() not in ("cpu",)
+    return device.type == "cuda"
+
+
+def _write_device_stats(out_dir: str | None, stats: dict, batcher) -> None:
+    """log/device_stats.json: the streamed_map stage stats (chunks, host
+    fallbacks, h2d/d2h bytes, stage seconds) and the DP batcher's counts."""
+    if batcher is not None:
+        stats["dp_batches"] = batcher.n_batches
+        stats["dp_jobs"] = batcher.n_jobs
+    if out_dir:
+        log_dir = os.path.join(out_dir, "log")
+        os.makedirs(log_dir, exist_ok=True)
+        with open(os.path.join(log_dir, "device_stats.json"), "w") as f:
+            json.dump(stats, f, indent=2, sort_keys=True)
 
 
 def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
                         num_workers, failures, timer):
     """Device-batched region execution: tile -> bucketed device dispatch ->
     host finish (with gap DPs batched onto the device).  See
-    pipeline/device_exec.py for the parity contract."""
+    pipeline/device_exec.py for the parity contract.  A device failure
+    raises: there is no host rerun of the chromosome."""
     import contextlib
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from focalsv_tpu_torch.device import resolve_device
     from focalsv_tpu_torch.pipeline import device_exec as dx
 
     def fetch_and_tile(region: Region):
@@ -154,30 +168,20 @@ def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
             _write_region_artifacts(rdir, rres, chrom, chrom_len)
         return rres
 
-    mesh = None
-    import jax
-    if jax.device_count() > 1:
-        from focalsv_tpu.parallel.mesh import make_mesh
-        mesh = make_mesh()
+    device = resolve_device()
     batch_ctx = contextlib.nullcontext()
-    if _dp_batching_enabled(cfg):
+    if _dp_batching_enabled(cfg, device):
         from focalsv_tpu_torch.parallel.batch_executor import dp_batching
-        batch_ctx = dp_batching()
+        batch_ctx = dp_batching(device=device)
     # fully-pipelined streaming: tile builds, device dispatches, decodes and
     # per-region finishes all overlap (device_exec.streamed_map)
     tile_jobs = [(lambda r=r: fetch_and_tile(r)) for r in regions]
-    with timer.stage("regions_streamed"), batch_ctx, \
+    stats: dict = {}
+    with timer.stage("regions_streamed"), batch_ctx as batcher, \
             ThreadPoolExecutor(max_workers=max(num_workers, 1)) as ex:
-        try:
-            results = dx.streamed_map(ex, tile_jobs, cfg, finish, mesh=mesh)
-        except Exception:
-            logger.exception("device streaming failed; host path for all "
-                             "%d regions", len(regions))
-            results = []
-            for i, r in enumerate(regions):
-                tile = fetch_and_tile(r)
-                results.append(finish(i, tile, None)
-                               if tile is not None else None)
+        results = dx.streamed_map(ex, tile_jobs, cfg, finish, device=device,
+                                  stats=stats)
+    _write_device_stats(out_dir, stats, batcher)
     return results
 
 
@@ -195,8 +199,8 @@ def process_chromosome(
 
     Execution modes (cfg.execution.mode):
     - "device" (default): regions bucketized into fixed-shape pileup tiles;
-      phasing + consensus run as one compiled device batch per bucket and
-      the aligner's gap DPs batch cross-thread onto the device -- the TPU is
+      phasing + consensus run as one device batch per bucket chunk and
+      the aligner's gap DPs batch cross-thread onto the device -- the GPU is
       the engine of the hot path.
     - "host": per-region numpy on a thread pool (the reference's
       joblib.Parallel analog; also the fallback inside device mode).
@@ -331,15 +335,10 @@ def run_target_mode(
     resume: bool = False,
     chrom_filter: str | None = None,
     num_workers: int = 4,
-    process_index: int = 0,
-    process_count: int = 1,
 ) -> str:
     """Target-mode entry (reference focalsv.py --target_bed | -S/-E).
-
-    With process_count > 1, each host takes its span-balanced shard of the
-    region list (parallel/distributed.py; the SLURM-per-chromosome analog),
-    writes a per-host VCF, and host 0 merges.  Returns the final VCF path
-    (per-host path on non-zero hosts).
+    Returns the final VCF path.  (Multi-host sharding of the region list
+    is not ported yet.)
     """
     os.makedirs(out_dir, exist_ok=True)
     bam = bamio.ensure_indexed(bam_path)
@@ -354,13 +353,6 @@ def run_target_mode(
         assert chrom is not None and start is not None and end is not None
         regions = [Region(chrom, int(start), int(end))]
     work_dir = out_dir
-    if process_count > 1:
-        from focalsv_tpu.parallel import distributed as dist
-        regions = dist.shard_regions(regions, process_index, process_count)
-        # host-scoped work dir: chromosomes can straddle shard boundaries,
-        # so per-chromosome outputs must not share paths across hosts
-        work_dir = os.path.join(out_dir, f"host{process_index}_work")
-        os.makedirs(work_dir, exist_ok=True)
     by_chrom = split_by_chrom(regions)
     chrom_vcfs = []
     for c, regs in sorted(by_chrom.items()):
@@ -379,41 +371,6 @@ def run_target_mode(
         write_vcf(vcf_path, cres.records,
                   contigs={c: fasta.lengths()[c]} if c in fasta.seqs else None)
         chrom_vcfs.append(vcf_path)
-    if process_count > 1:
-        import jax
-
-        from focalsv_tpu.parallel import distributed as dist
-        host_vcf = dist.host_vcf_path(out_dir, process_index)
-        tmp = host_vcf + ".tmp"
-        merge_vcfs(chrom_vcfs, tmp, contigs=fasta.lengths())
-        os.replace(tmp, host_vcf)   # atomic: the merge barrier keys on this
-        final_path = os.path.join(out_dir, "FocalSV_Final_SV.vcf")
-        if jax.process_count() == process_count:
-            # true jax.distributed run: gather every host's records over
-            # device collectives (ICI/DCN) instead of the filesystem, then
-            # dedup ONCE at the gather point -- SVs straddling a shard
-            # boundary collapse here (parallel/gather.py)
-            from focalsv_tpu_torch.calling.dedup import dedup_records as _dedup
-            from focalsv_tpu.io.vcf import read_vcf, sort_records
-            from focalsv_tpu.parallel.gather import allgather_records
-            _, host_records = read_vcf(host_vcf)
-            global_records = allgather_records(host_records)
-            if process_index != 0:
-                return host_vcf
-            global_records, _ = _dedup(sort_records(global_records),
-                                       cfg.dedup)
-            write_vcf(final_path, sort_records(global_records),
-                      contigs=fasta.lengths())
-            logger.info("final VCF (collective gather): %s", final_path)
-            return final_path
-        if process_index != 0:
-            return host_vcf
-        # emulated/multi-process-without-jax.distributed fallback: host-0
-        # file merge with the same cross-shard dedup at the merge point
-        final = dist.merge_host_vcfs(out_dir, process_count,
-                                     dedup_cfg=cfg.dedup)
-        logger.info("final VCF: %s", final)
-        return final
     final = os.path.join(out_dir, "FocalSV_Final_SV.vcf")
     merge_vcfs(chrom_vcfs, final, contigs=fasta.lengths())
     logger.info("final VCF: %s", final)

@@ -1,14 +1,15 @@
 """First-class tracing/profiling (the reference has none; SURVEY.md section 5
-calls for JAX profiler traces + per-stage timing as first-class)."""
+calls for device profiler traces + per-stage timing as first-class)."""
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from collections import defaultdict
 
-import jax
+import torch
 
 
 class StageTimer:
@@ -41,12 +42,16 @@ class StageTimer:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """JAX profiler trace (viewable in TensorBoard / Perfetto)."""
-    jax.profiler.start_trace(log_dir)
-    try:
-        yield
-    finally:
-        jax.profiler.stop_trace()
+    """torch.profiler trace of the host and, with a card, the CUDA device:
+    log_dir/trace.json, a Chrome trace (viewable in Perfetto)."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 GLOBAL_TIMER = StageTimer()
