@@ -34,6 +34,7 @@
 // version is written to be right, not fast: several pairs per block, dirs
 // fused with the traceback and rows kept in registers are later work.
 
+#include <algorithm>
 #include <climits>
 #include <cstddef>
 #include <cstdint>
@@ -205,7 +206,7 @@ extern "C" int focalsv_banded_align(
     int Lt, int W, int match, int mismatch, int gap_open, int gap_extend,
     int store_dirs, void* stream) {
   if (B <= 0) return 0;
-  const int threads = min(((W + 31) / 32) * 32, MAX_THREADS);
+  const int threads = std::min(((W + 31) / 32) * 32, MAX_THREADS);
   const int cpt = (W + threads - 1) / threads;
   const size_t smem = scratch != nullptr ? 0 : (size_t)5 * W * sizeof(int32_t);
   if (smem > 48 * 1024) {

@@ -2,7 +2,8 @@
 
 The CUDA DP kernel runs one thread block per alignment pair
 (ops/align_cuda.py), so a batch of pairs fills the card's SMs, but the
-pipeline's aligner naturally produces one gap fill at a time.  This module is the scheduler in between: worker threads
+pipeline's aligner naturally produces one gap fill at a time.  This module
+is the scheduler in between: worker threads
 submit (query, target, band) jobs and block; a dispatcher groups jobs with
 identical bucketed shapes/scoring, pads them into one device batch, launches
 a single `banded_align` call, and resolves per-job (score, dirs) futures.
@@ -44,7 +45,7 @@ class _Job:
     event: threading.Event = field(default_factory=threading.Event)
     score: int | None = None
     dirs: np.ndarray | None = None
-    error: BaseException | None = None
+    error: Exception | None = None
 
 
 # native banded-DP throughput for the latency/compute routing decision;
@@ -183,7 +184,7 @@ class DPBatcher:
             scores = scores.cpu().numpy()
             dirs = dirs.cpu().numpy()
             rt = time.perf_counter() - t0
-        except BaseException as exc:
+        except Exception as exc:
             # no stand-in result: every waiting job raises this failure
             for j in jobs:
                 j.error = exc

@@ -183,16 +183,3 @@ def test_no_cuda_device_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed", range(2))
-def test_kernel_matches_plain_on_card(seed):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    for W, scoring in ((64, OLC_SCORING), (128, ALIGNER_SCORING)):
-        args = [x.cuda() for x in _torch_args(*_pairs(seed, W=W))]
-        s_k, d_k = align_cuda.banded_align_batch_cuda(*args, band=W,
-                                                      **scoring)
-        s_p, d_p = talign.banded_align_batch(*args, band=W, **scoring)
-        assert torch.equal(s_k, s_p) and torch.equal(d_k, d_p)
