@@ -22,17 +22,37 @@
 // the op string is full.
 //
 // What bounds it on an H100: neither bytes nor operations but latency.  A
-// walk is up to 2 * M + W dependent steps, each needing one direction byte;
-// one thread chasing them through device memory would pay a memory round
-// trip a step.  Design: one warp per pair.  The path moves up at most one
-// row and sideways one cell a step, so the warp loads a tile of the band
-// around the walker (TILE_ROWS rows up from its row, TILE_COLS columns
-// around its cell; all loads of a tile in flight together, 16 bytes a lane)
-// into shared memory, lane 0 walks inside the tile at shared-memory latency
-// and leaves its ops in a shared buffer, and the warp writes that buffer
-// out in one coalesced pass and loads the next tile where the walker stands.
-// The forced tails (i == 0 or j == 0) and the 255 filler are written by the
-// whole warp.
+// walk is up to 2 * M + W ops, and which cell comes next depends on the cell
+// before, so the floor is the number of dependent decisions times one
+// shared-memory load-to-use.  Design: one warp per pair, and the warp walks
+// runs, not steps.  Each state's run is a straight line in band coordinates:
+// M runs go up a column (k stays), D runs go left along a row, I runs go up
+// the anti-diagonal (k + 1 a row).  Lane t reads the cell t steps ahead on
+// that line; one __ballot_sync of "this cell continues the run" and one
+// __ffs give the run's length, up to 32 ops a decision, and lane t writes op
+// n + t straight to the op string.  A run is cut where a lane's cell is
+// outside the tile in shared memory, where i, j or the op string runs out,
+// and at the band's edge (a cell off the band reads as 0).
+//
+// The tile: TILE_ROWS rows up from the walker's row, TILE_COLS columns
+// around its cell, in shared memory with a row stride of TILE_STRIDE = 144
+// bytes.  A stride of 128 bytes would put a column's 32 cells into one bank
+// (a 32-way conflict on every M run, the common one).  The copies are
+// cp.async of 16 bytes a lane, whose shared-memory address must be a
+// multiple of 16, so the stride is one too, and 132 bytes (33 words, free of
+// conflicts) is not to be had: it would need 4-byte copies, four times the
+// copy instructions, all issued by the one warp that also walks.  With 144
+// bytes (9 units of 16) a column's 32 cells fall into 8 groups of banks, a
+// 4-way conflict, a few cycles on a decision of some hundred; row reads
+// broadcast and anti-diagonal reads spread likewise.
+//
+// Two tile buffers: when the walker enters a tile, the tile above it (the
+// same columns re-centred on the walker) is requested with cp.async into
+// the other buffer and waited for only when the walker leaves upwards.  A
+// walker that leaves sideways (a long gap) loads the tile where it stands
+// and waits for it.  Where W is not a multiple of 16 the copies are plain
+// byte loads.  The forced tails (i == 0 or j == 0) and the 255 filler are
+// written by the whole warp.
 
 #include <cstddef>
 #include <cstdint>
@@ -47,15 +67,69 @@ constexpr int DIR_F_EXT = 0b1000;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int TILE_ROWS = 64;
 constexpr int TILE_COLS = 128;    // a multiple of 16
+constexpr int TILE_STRIDE = 144;  // bytes a row in shared memory, see above
 constexpr int TILE_LEFT = 48;     // columns kept to the left of the walker
-constexpr int OPS_BUF = 256;      // ops a pass may emit before a write-out
 // a lone warp on a scheduler walks fastest, and a batch is at most a few
 // hundred pairs: one warp, one pair, one block
 constexpr int WARPS_PER_BLOCK = 1;
 
-struct WarpSmem {
-  uint8_t tile[TILE_ROWS * TILE_COLS];
-  uint8_t ops[OPS_BUF];
+__device__ __forceinline__ void cp_async16(uint8_t* smem, const uint8_t* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits for every copy this lane has requested, then makes the warp's
+// copies visible to all its lanes
+__device__ __forceinline__ void tile_arrived() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+}
+
+// A tile of one pair's direction bytes in shared memory: dirs rows
+// [r_lo, r_hi], columns [c_lo, c_lo + TILE_COLS).
+struct Tile {
+  uint8_t* buf;
+  int r_lo, r_hi, c_lo;
+
+  __device__ __forceinline__ bool holds(int r, int k) const {
+    return r >= r_lo && r <= r_hi && k >= c_lo && k < c_lo + TILE_COLS;
+  }
+  __device__ __forceinline__ int at(int r, int k) const {
+    return buf[(r - r_lo) * TILE_STRIDE + (k - c_lo)];
+  }
+  // Requests the tile whose last row is r, placed around cell k; returns at
+  // once.  tile_arrived() must come before the first read.
+  __device__ __forceinline__ void request(const uint8_t* db, int W, int r,
+                                          int k, bool vec_ok, int lane) {
+    r_hi = r;
+    r_lo = max(r - TILE_ROWS + 1, 0);
+    c_lo = max(k - TILE_LEFT, 0) & ~15;
+    const int nrows = r_hi - r_lo + 1;
+    if (vec_ok) {
+      constexpr int UPR = TILE_COLS / 16;      // 16-byte units per row
+      for (int u = lane; u < nrows * UPR; u += 32) {
+        const int rr = u / UPR;
+        const int cc = (u - rr * UPR) * 16;
+        if (c_lo + cc < W)
+          cp_async16(buf + rr * TILE_STRIDE + cc,
+                     db + (size_t)(r_lo + rr) * W + c_lo + cc);
+      }
+      cp_async_commit();
+    } else {
+      for (int u = lane; u < nrows * TILE_COLS; u += 32) {
+        const int rr = u / TILE_COLS;
+        const int cc = u - rr * TILE_COLS;
+        if (c_lo + cc < W)
+          buf[rr * TILE_STRIDE + cc] = db[(size_t)(r_lo + rr) * W + c_lo + cc];
+      }
+    }
+  }
 };
 
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) traceback_kernel(
@@ -63,108 +137,121 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) traceback_kernel(
     const int32_t* __restrict__ t_len, const int32_t* __restrict__ d_lo,
     uint8_t* __restrict__ ops, int32_t* __restrict__ n_out, int B, int M,
     int W, int BUF) {
-  __shared__ __align__(16) WarpSmem smem[WARPS_PER_BLOCK];
+  __shared__ __align__(16) uint8_t
+      smem[WARPS_PER_BLOCK][2][TILE_ROWS * TILE_STRIDE];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * WARPS_PER_BLOCK + warp;
   if (b >= B) return;
-  uint8_t* tile = smem[warp].tile;
-  uint8_t* obuf = smem[warp].ops;
   const uint8_t* db = dirs + (size_t)b * M * W;
   uint8_t* ob = ops + (size_t)b * BUF;
   const int dlo = d_lo[b];
   const bool vec_ok = (W % 16) == 0 &&
                       (reinterpret_cast<uintptr_t>(dirs) & 15) == 0;
 
+  // i, j, n and state are the same in every lane: each lane derives them
+  // from the ballots
   int i = q_len[b];
   int j = t_len[b];
   int state = 0;
   int n = 0;
-  // the tile holds dirs rows [r_lo, r_hi] and columns [c_lo, c_lo + TILE_COLS)
-  int r_lo = 0, r_hi = -1, c_lo = 0;
+  Tile cur{smem[warp][0], 0, -1, 0};    // the tile the walker stands in
+  Tile next{smem[warp][1], 0, -1, 0};   // the tile requested ahead (empty)
 
-  while (true) {
-    int nbuf = 0;
-    int done = 0;
-    if (lane == 0) {
-      while (true) {
-        if (i <= 0 || j <= 0 || n >= BUF) {
-          done = 1;
-          break;
-        }
-        const int k = j - i - dlo;
-        int p = 0;
-        if (k >= 0 && k < W) {
-          const int r = min(i - 1, M - 1);
-          if (r < r_lo || r > r_hi || k < c_lo || k >= c_lo + TILE_COLS)
-            break;                      // the walker left the tile
-          p = tile[(r - r_lo) * TILE_COLS + (k - c_lo)];
-        }
-        const int h2 = p & DIR_H_MASK;
-        if (state == 0) {
-          if (h2 == 0) {
-            obuf[nbuf++] = 0;
-            ++n;
-            --i;
-            --j;
-          } else if (h2 == 3) {         // no cell of B1 holds 3: stop
-            done = 1;
-            break;
-          } else {
-            state = h2;
-          }
-        } else if (state == 1) {
-          obuf[nbuf++] = 1;
-          ++n;
-          --j;
-          state = (p & DIR_E_EXT) ? 1 : 0;
-        } else {
-          obuf[nbuf++] = 2;
-          ++n;
-          --i;
-          state = (p & DIR_F_EXT) ? 2 : 0;
-        }
-        if (nbuf == OPS_BUF) break;     // write the ops out, then go on
-      }
-    }
-    i = __shfl_sync(FULL, i, 0);
-    j = __shfl_sync(FULL, j, 0);
-    n = __shfl_sync(FULL, n, 0);
-    nbuf = __shfl_sync(FULL, nbuf, 0);
-    done = __shfl_sync(FULL, done, 0);
-    __syncwarp();
-    for (int x = lane; x < nbuf; x += 32) ob[n - nbuf + x] = obuf[x];
-    if (done) break;
-
-    // the next tile: up from the walker's row, around its cell
+  while (i > 0 && j > 0 && n < BUF) {
     const int k = j - i - dlo;
-    if (k >= 0 && k < W) {
-      r_hi = min(i - 1, M - 1);
-      r_lo = max(r_hi - TILE_ROWS + 1, 0);
-      c_lo = max(k - TILE_LEFT, 0) & ~15;
-      const int nrows = r_hi - r_lo + 1;
-      if (vec_ok) {
-        constexpr int UPR = TILE_COLS / 16;      // 16-byte units per row
-        for (int u = lane; u < nrows * UPR; u += 32) {
-          const int rr = u / UPR;
-          const int cc = (u - rr * UPR) * 16;
-          if (c_lo + cc < W)
-            *reinterpret_cast<uint4*>(tile + rr * TILE_COLS + cc) =
-                *reinterpret_cast<const uint4*>(
-                    db + (size_t)(r_lo + rr) * W + c_lo + cc);
+    const bool k_in = k >= 0 && k < W;
+    if (k_in) {
+      const int r = min(i - 1, M - 1);
+      if (!cur.holds(r, k)) {
+        tile_arrived();                 // the tile ahead, if one was asked for
+        if (next.holds(r, k)) {
+          const Tile was = cur;
+          cur = next;
+          next = was;
+        } else {
+          cur.request(db, W, r, k, vec_ok, lane);
+          tile_arrived();
         }
-      } else {
-        for (int u = lane; u < nrows * TILE_COLS; u += 32) {
-          const int rr = u / TILE_COLS;
-          const int cc = u - rr * TILE_COLS;
-          if (c_lo + cc < W)
-            tile[u] = db[(size_t)(r_lo + rr) * W + c_lo + cc];
-        }
+        next.r_hi = -1;
+        next.r_lo = 0;
+        if (cur.r_lo > 0) next.request(db, W, cur.r_lo - 1, k, vec_ok, lane);
       }
     }
-    __syncwarp();
+
+    if (state == 0) {
+      // an M run: lane t looks at cell (i - t, j - t), the same k
+      const int it = i - lane;
+      const bool valid = it > 0 && j - lane > 0 && n + lane < BUF;
+      bool avail = true;
+      int p = 0;
+      if (k_in) {
+        const int rt = min(it - 1, M - 1);
+        avail = rt >= cur.r_lo && rt <= cur.r_hi;
+        if (valid && avail) p = cur.at(rt, k);
+      }
+      const int h2 = p & DIR_H_MASK;
+      const bool known = valid && avail;
+      const unsigned go = __ballot_sync(FULL, known && h2 == 0);
+      const int run = go == FULL ? 32 : __ffs(~go) - 1;
+      // the cell that ended the run says where the walk turns to, unless
+      // the run was cut (then the loop's head looks again)
+      const int turn = __shfl_sync(FULL, known ? h2 : 0, run & 31);
+      if (lane < run) ob[n + lane] = 0;
+      n += run;
+      i -= run;
+      j -= run;
+      if (run < 32) {
+        if (turn == 3) break;           // no cell of B1 holds 3: stop
+        state = turn;
+      }
+    } else if (state == 1) {
+      // a D run: lane t looks at cell (i, j - t), k - t
+      const int kt = k - lane;
+      const bool valid = j - lane > 0 && n + lane < BUF;
+      bool avail = true;
+      int p = 0;
+      if (kt >= 0 && kt < W) {
+        const int r = min(i - 1, M - 1);
+        avail = cur.holds(r, kt);
+        if (valid && avail) p = cur.at(r, kt);
+      }
+      const bool known = valid && avail;
+      const unsigned go = __ballot_sync(FULL, known && (p & DIR_E_EXT));
+      const int first = go == FULL ? 32 : __ffs(~go) - 1;
+      // the first cell without the extend bit still emits its D and ends
+      // the gap, unless the run was cut there
+      const bool ends = first < 32 && __shfl_sync(FULL, (int)known, first & 31);
+      const int run = first + (ends ? 1 : 0);
+      if (lane < run) ob[n + lane] = 1;
+      n += run;
+      j -= run;
+      if (ends) state = 0;
+    } else {
+      // an I run: lane t looks at cell (i - t, j), k + t
+      const int it = i - lane;
+      const int kt = k + lane;
+      const bool valid = it > 0 && n + lane < BUF;
+      bool avail = true;
+      int p = 0;
+      if (kt >= 0 && kt < W) {
+        const int rt = min(it - 1, M - 1);
+        avail = valid && cur.holds(rt, kt);
+        if (avail) p = cur.at(rt, kt);
+      }
+      const bool known = valid && avail;
+      const unsigned go = __ballot_sync(FULL, known && (p & DIR_F_EXT));
+      const int first = go == FULL ? 32 : __ffs(~go) - 1;
+      const bool ends = first < 32 && __shfl_sync(FULL, (int)known, first & 31);
+      const int run = first + (ends ? 1 : 0);
+      if (lane < run) ob[n + lane] = 2;
+      n += run;
+      i -= run;
+      if (ends) state = 0;
+    }
   }
+  tile_arrived();                       // no copy outlives the walk
 
   // forced tails: only deletions are left at i == 0, only insertions at
   // j == 0, as far as the op string has room
