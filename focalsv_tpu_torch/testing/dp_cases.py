@@ -118,12 +118,17 @@ def carve_dirs(M, W, q_len, t_len, d_lo, runs):
     return dirs
 
 
-def walk_cases(seed=0):
+def walk_cases(seed=0, with_stop=False):
     """Direction bytes whose walks hold what a traceback must get right:
     (name, dirs (B, M, W), q_len, t_len, d_lo, W, M), with gap runs longer
     than 32 ops, than 64 rows and than 128 columns, runs of 31, 32 and 33,
     runs that end on the band's edge or leave it, an op string filled to its
-    last byte, a band width that is no multiple of 16, and random bytes."""
+    last byte, a band width that is no multiple of 16, and random bytes.
+
+    No cell of the DP holds an H source of 3, and the JAX package's
+    traceback_device does not end on one; ``with_stop`` adds random bytes
+    that do hold it, for the port's kernel against its plain version (both
+    stop there)."""
     rng = np.random.default_rng(seed)
     cases = []
 
@@ -163,12 +168,17 @@ def walk_cases(seed=0):
         (150, 170, -30, [(0, 40), (1, 45), (0, 20), (2, 70), (0, 20)]),
         (150, 150, -50, [(2, 34), (0, 116)])])
     for W, M in ((48, 200), (160, 100), (300, 40)):
-        cases.append((f"random_bytes_w{W}",
-                      rng.integers(0, 16, (6, M, W)).astype(np.uint8),
+        noise = rng.integers(0, 16, (6, M, W)).astype(np.uint8)
+        if with_stop:
+            cases.append((f"random_stop_w{W}", noise.copy()))
+        noise[noise & 3 == 3] &= 0b1110
+        cases.append((f"random_bytes_w{W}", noise,
                       rng.integers(0, M + 1, 6).astype(np.int32),
                       rng.integers(0, M + W, 6).astype(np.int32),
                       rng.integers(-W, W // 2 + 1, 6).astype(np.int32), W, M))
-        gaps = rng.choice(np.array([0, 5, 10, 13, 14, 3], np.uint8),
-                          (6, M, W), p=[.5, .2, .2, .04, .04, .02])
+        gaps = rng.choice(np.array([0, 5, 10, 13, 14, 1, 2], np.uint8),
+                          (6, M, W), p=[.5, .2, .2, .03, .03, .02, .02])
         cases.append((f"random_gaps_w{W}", gaps) + cases[-1][2:])
+        if with_stop:
+            cases[-3] = cases[-3] + cases[-1][2:]
     return cases

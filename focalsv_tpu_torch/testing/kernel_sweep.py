@@ -212,7 +212,7 @@ def main() -> int:
                        (1, 2, len(dirs)), load_ns):
             return 1
         del dirs
-    for name, dirs, q_len, t_len, d_lo, W, M in walk_cases():
+    for name, dirs, q_len, t_len, d_lo, W, M in walk_cases(with_stop=True):
         case = [torch.from_numpy(a).to(dev) for a in (dirs, q_len, t_len,
                                                       d_lo)]
         ops_k, n_k = align_cuda.traceback_cuda(*case, W, M)

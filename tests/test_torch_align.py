@@ -13,6 +13,7 @@ import focalsv_tpu.ops.align_pallas as ap
 from focalsv_tpu.ops import align as jalign
 from focalsv_tpu_torch.ops import align as talign
 from focalsv_tpu_torch.ops import align_cuda
+from focalsv_tpu_torch.testing import dp_cases
 
 OLC_SCORING = dict(match=2, mismatch=-4, gap_open=-4, gap_extend=-2)
 ALIGNER_SCORING = dict(match=2, mismatch=-8, gap_open=-24, gap_extend=-2)
@@ -244,6 +245,77 @@ def test_traceback_device_matches_jax_and_host(kind, scoring):
                                     int(t_len[b]), int(d_lo[b]))
             assert talign.ops_to_cigar(ops_t[b].numpy(), int(n_t[b])) == host
             assert sum(l for _, l in host) == int(n_t[b])
+
+
+WALK_CASES = {c[0]: c[1:] for c in dp_cases.walk_cases()}
+
+
+@pytest.mark.parametrize("name", sorted(WALK_CASES))
+def test_traceback_device_matches_jax_on_crafted_walks(name):
+    """Direction bytes crafted so that the walk has gap runs longer than 32
+    ops, than 64 rows and than 128 columns, runs that end on the band's
+    edge, a full op string, and random bytes: the plain version equals the
+    JAX traceback_device byte for byte (tolerance 0)."""
+    dirs, q_len, t_len, d_lo, W, M = WALK_CASES[name]
+    ops_j, n_j = jalign.traceback_device(dirs, q_len, t_len, d_lo, band=W,
+                                         max_rows=M)
+    ops_t, n_t = talign.traceback_device(*_torch_args(dirs, q_len, t_len,
+                                                      d_lo), band=W,
+                                         max_rows=M)
+    np.testing.assert_array_equal(ops_t.numpy(), np.asarray(ops_j))
+    np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
+
+
+def _runs(ops, n):
+    return talign.ops_to_cigar(ops.numpy(), int(n))
+
+
+def test_crafted_walks_hold_what_they_claim():
+    """The long-gap cases really walk runs past 32 ops, 64 rows and 128
+    columns, end runs on the band's edge and fill the op string."""
+    CDEL, CINS = talign.bamio.CDEL, talign.bamio.CINS
+
+    def walk(name):
+        dirs, q_len, t_len, d_lo, W, M = WALK_CASES[name]
+        ops, n = talign.traceback_device(*_torch_args(dirs, q_len, t_len,
+                                                      d_lo), band=W,
+                                         max_rows=M)
+        return [_runs(ops[b], n[b]) for b in range(len(dirs))], n, W, M
+
+    runs, _, _, _ = walk("long_e_runs")
+    assert (CDEL, 200) in runs[0]
+    assert {(CDEL, 33), (CDEL, 32), (CDEL, 31)} <= set(runs[1])
+    runs, _, _, _ = walk("long_f_runs")
+    assert (CINS, 150) in runs[0]
+    assert {(CINS, 33), (CINS, 32), (CINS, 80)} <= set(runs[1])
+    runs, _, _, _ = walk("band_edge_runs")
+    assert (CDEL, 30) in runs[0] and (CINS, 23) in runs[2]
+    # a run that leaves the band is cut there and the walk goes on diagonal
+    assert (CDEL, 22) in runs[1] and (CINS, 35) in runs[3]
+    _, n, W, M = walk("full_op_string")
+    assert int(n[0]) == int(n[1]) == 2 * M + W + 8
+
+
+def test_noisy_pairs_walk_short_runs():
+    """The CLR-like pairs of testing/dp_cases.py: the plain DP and walk
+    equal the JAX package's, and the walk changes state every few ops."""
+    rng = np.random.default_rng(3)
+    args = dp_cases.noisy_pairs(rng, 2, 1024, 128, 600)
+    s_j, d_j = jalign.banded_align_batch(*args, band=128, **OLC_SCORING)
+    ta = _torch_args(*args)
+    s_t, d_t = talign.banded_align_batch(*ta, band=128, **OLC_SCORING)
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+    assert (s_t > 0).all()
+    ops_j, n_j = jalign.traceback_device(d_j, args[1], args[3], args[4],
+                                         band=128, max_rows=1024)
+    ops_t, n_t = talign.traceback_device(d_t, ta[1], ta[3], ta[4], band=128,
+                                         max_rows=1024)
+    np.testing.assert_array_equal(ops_t.numpy(), np.asarray(ops_j))
+    np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
+    for b in range(2):
+        runs = _runs(ops_t[b], n_t[b])
+        assert int(n_t[b]) / len(runs) < 10
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -14,6 +14,7 @@ import torch
 
 from focalsv_tpu_torch.ops import align as talign
 from focalsv_tpu_torch.ops import align_cuda
+from focalsv_tpu_torch.testing import dp_cases
 
 OLC_SCORING = dict(match=2, mismatch=-4, gap_open=-4, gap_extend=-2)
 ALIGNER_SCORING = dict(match=2, mismatch=-8, gap_open=-24, gap_extend=-2)
@@ -119,6 +120,67 @@ def test_traceback_kernel_matches_plain_and_host(cuda, W):
                                 int(t_len[b]), int(d_lo[b]))
         assert talign.ops_to_cigar(ops_k[b].cpu().numpy(),
                                    int(n_k[b])) == host
+
+
+WALK_CASES = {c[0]: c[1:] for c in dp_cases.walk_cases(with_stop=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WALK_CASES))
+def test_traceback_kernel_matches_plain_on_crafted_walks(cuda, name):
+    """Gap runs longer than 32 ops, than a tile's 64 rows and 128 columns,
+    runs ending on the band's edge, a full op string, a band that is no
+    multiple of 16, random bytes."""
+    dirs, q_len, t_len, d_lo, W, M = WALK_CASES[name]
+    args = [torch.from_numpy(a).to(cuda) for a in (dirs, q_len, t_len, d_lo)]
+    ops_k, n_k = talign.traceback_ops(*args, band=W, max_rows=M)
+    ops_p, n_p = talign.traceback_device(*args, band=W, max_rows=M)
+    torch.cuda.synchronize()
+    assert torch.equal(ops_k, ops_p) and torch.equal(n_k, n_p)
+
+
+@pytest.mark.cuda
+def test_traceback_kernel_matches_plain_on_noisy_walk(cuda):
+    rng = np.random.default_rng(3)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in dp_cases.noisy_pairs(rng, 6, 2048, 256, 1200)]
+    q, q_len, t, t_len, d_lo = args
+    scores, dirs = talign.banded_align(*args, band=256, **OLC_SCORING)
+    ops_k, n_k = talign.traceback_ops(dirs, q_len, t_len, d_lo, band=256,
+                                      max_rows=2048)
+    ops_p, n_p = talign.traceback_device(dirs, q_len, t_len, d_lo, band=256,
+                                         max_rows=2048)
+    torch.cuda.synchronize()
+    assert (scores > 0).all()
+    assert torch.equal(ops_k, ops_p) and torch.equal(n_k, n_p)
+    for b in range(6):
+        host = talign.traceback(dirs[b].cpu().numpy(), int(q_len[b]),
+                                int(t_len[b]), int(d_lo[b]))
+        assert talign.ops_to_cigar(ops_k[b].cpu().numpy(),
+                                   int(n_k[b])) == host
+
+
+@pytest.mark.cuda
+def test_pairhmm_on_card_matches_cpu(cuda):
+    """The pair-HMM's tensor code on the card against the CPU: float32 sums
+    of a few terms in the same order, 1e-3 absolute."""
+    from focalsv_tpu_torch.ops import pairhmm
+    rng = np.random.default_rng(0)
+    B, L = 2000, 29
+    haps = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    reads = np.full((B, L), 5, np.uint8)
+    reads[:, :21] = haps[:, 4:25]
+    flip = rng.random((B, 21)) < 0.05
+    reads[:, :21][flip] = (reads[:, :21][flip] + 1) % 4
+    rl = np.full(B, 21, np.int32)
+    hl = np.full(B, L, np.int32)
+    kw = dict(max_read=L, max_hap=L)
+    on_card = pairhmm.pairhmm_forward_batch(reads, rl, haps, hl, device=cuda,
+                                            **kw)
+    on_cpu = pairhmm.pairhmm_forward_batch(reads, rl, haps, hl, device="cpu",
+                                           **kw)
+    assert np.isfinite(on_cpu).all()
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-3)
 
 
 @pytest.mark.cuda

@@ -2,8 +2,11 @@
 
 tests/conftest.py imports jax for the whole session, so the check runs in a
 subprocess with jax and focalsv_tpu blocked: it imports focalsv_tpu_torch,
-runs the golden HIFI fixture in device mode and an OLC region with every DP
-job on the device batch, and records any attempt to import jax, focalsv_tpu
+runs the golden HIFI fixture in device mode, an OLC region with every DP
+job on the device batch, and every other entry point of the port once (the
+multi-process executor, a host region with pair-HMM realignment, the
+complex-SV, evaluation, somatic, clean-up and call-set CLIs), and records
+any attempt to import jax, focalsv_tpu
 or a module below either (an attempt that the port's code might catch and
 pass over would otherwise go unseen).  A static case reads the port's
 sources and chip_smoke.py for such an import."""
@@ -79,6 +82,71 @@ GUARD = textwrap.dedent('''
     import json
     with open(f"{out}/olc/chr21/log/device_stats.json") as f:
         assert json.load(f)["dp_jobs"] > 0
+
+    # the multi-process executor: one child, one region
+    import numpy as np
+    from focalsv_tpu_torch.pipeline.mp_exec import MpRegionExecutor
+    sim.write_region_bam(rg, f"{out}/mp.bam")
+    np.save(f"{out}/mp.npy", rg.ref)
+    stats = {}
+    with MpRegionExecutor(preset("HIFI"), n_children=1) as ex:
+        res = ex.run([(f"{out}/mp.bam", f"{out}/mp.npy", "chr21")],
+                     collect="records", stats=stats)
+    assert res[0][1] is not None and stats["cuda_initialized"] == 0
+
+    # a host region with pair-HMM realignment
+    from focalsv_tpu_torch.pipeline.region import process_region
+    hmm = preset("HIFI")
+    hmm = hmm.replace(phasing=dataclasses.replace(hmm.phasing,
+                                                  use_pairhmm=True))
+    rg_hmm = sim.simulate_region(seed=5, ref_len=6000, coverage=12, n_snps=8,
+                                 read_len_mean=2500)
+    assert process_region(rg_hmm.reads, rg_hmm.ref, 0, "chr21",
+                          hmm).n_phased > 0
+
+    # the complex-SV CLI, both modes, on split reads across a translocation
+    from focalsv_tpu_torch.complexsv import cli as ccli
+    from focalsv_tpu_torch.testing import complex_cases as cc
+    cc.write_bam(f"{out}/tra.bam", cc.translocation_records(),
+                 ["chr1", "chr2"], [200_000, 200_000])
+    with open(f"{out}/typed.bed", "w") as f:
+        f.write("chr1\\t95000\\t105000\\tTRA\\n")
+    assert ccli.main(["--mode", "auto", "--bam_file", f"{out}/tra.bam",
+                      "-d", "HIFI", "-o", f"{out}/cauto"]) == 0
+    assert ccli.main(["--mode", "target", "--bam_file", f"{out}/tra.bam",
+                      "--bed_file", f"{out}/typed.bed", "-d", "HIFI",
+                      "-o", f"{out}/ctarget"]) == 0
+    with open(f"{out}/ctarget/FocalSV_TRA_INV_DUP.vcf") as f:
+        assert "SVTYPE=TRA" in f.read()
+    ref, ins = cc.dup_as_ins_records()
+    from focalsv_tpu_torch.complexsv.target import recover_dup_from_ins
+    assert len(recover_dup_from_ins(ins, {"chr21": ref})) == 1
+
+    # evaluation, somatic merge, clean-up, call-set converter
+    from focalsv_tpu_torch.evaluation import cli as ecli
+    from focalsv_tpu_torch.evaluation import somatic
+    from focalsv_tpu_torch.evaluation.compare import truth_from_sim
+    from focalsv_tpu_torch.io.vcf import write_vcf
+    from focalsv_tpu_torch.tools import callset_to_bed, clean
+    write_vcf(f"{out}/truth.vcf", truth_from_sim(rg.svs, "chr21", rg.ref))
+    calls = f"{out}/olc/FocalSV_Final_SV.vcf"
+    assert ecli.main(["bench", "--call", calls, "--truth",
+                      f"{out}/truth.vcf"]) == 0
+    assert ecli.main(["protocol", "--call", calls, "--truth",
+                      f"{out}/truth.vcf", "--out_dir", f"{out}/proto"]) == 0
+    assert ecli.main(["grid", "--call", calls, "--truth", f"{out}/truth.vcf",
+                      "--out_dir", f"{out}/grid", "--refdists", "100,500",
+                      "--pctsims", "0.0,0.5"]) == 0
+    assert ecli.main(["figdata", "--call", calls, "--truth",
+                      f"{out}/truth.vcf", "--out_dir", f"{out}/grid"]) == 0
+    assert somatic.main(["-n", f"{out}/cauto/FocalSV_TRA_INV_DUP.vcf", "-t",
+                         f"{out}/ctarget/FocalSV_TRA_INV_DUP.vcf", "-o",
+                         f"{out}/somatic.vcf"]) == 0
+    with open(f"{out}/calls.csv", "w") as f:
+        f.write(",chrom1,pos1,chrom2,pos2,svsize,svtype\\n"
+                "0,chr1,1000000,chr1,1200000,200000,DUP\\n")
+    assert callset_to_bed.main([f"{out}/calls.csv", f"{out}/calls.bed"]) == 0
+    assert clean.main(["--out_dir", f"{out}/olc", "--dry_run"]) == 0
     print("BLOCKED", blocked)
     assert not blocked, blocked
     assert sys.modules.get("jax") is None

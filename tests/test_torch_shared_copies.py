@@ -36,6 +36,12 @@ VERBATIM = [
     "scan/fast_scan.py", "scan/genotype.py",
     "regions/__init__.py", "regions/detect.py",
     "testing/__init__.py", "testing/simulate.py",
+    "complexsv/__init__.py", "complexsv/auto.py", "complexsv/target.py",
+    "complexsv/cli.py", "phasing/realign.py",
+    "evaluation/__init__.py", "evaluation/cli.py", "evaluation/compare.py",
+    "evaluation/figdata.py", "evaluation/figures.py", "evaluation/grid.py",
+    "evaluation/somatic.py", "evaluation/vcf_filter.py",
+    "tools/__init__.py", "tools/clean.py", "tools/callset_to_bed.py",
 ]
 
 # differ on purpose; each is held by a behaviour case below
@@ -44,6 +50,8 @@ DIFFERENT = {
                           "native/, keyed by source and machine, never beside "
                           "the sources",
     "config.py": "the reference's file plus config_from_reference",
+    "pipeline/mp_exec.py": "children hide the card instead of pinning jax; "
+                           "one device, no mesh; a failing is_ready raises",
 }
 
 
@@ -101,6 +109,21 @@ def test_config_from_reference_refuses_unknown_sections():
     d["not_a_section"] = {}
     with pytest.raises(ValueError, match="not_a_section"):
         tconfig.config_from_reference(d)
+
+
+def test_mp_exec_fork_keeps_the_reference_protocol():
+    """The executor's fork differs from the reference only where the device
+    is named: the message kinds, the child's loop and the routing are the
+    reference's lines."""
+    import difflib
+    ref = (REF / "pipeline/mp_exec.py").read_text().splitlines()
+    port = _as_reference((PORT / "pipeline/mp_exec.py").read_text()
+                         ).splitlines()
+    removed = [ln for ln in difflib.ndiff(ref, port) if ln.startswith("- ")]
+    assert len(removed) < 45, len(removed)
+    for kind in ('"tile"', '"done_build"', '"finished"', '"error"', '"dev"',
+                 '"run"', "_STOP"):
+        assert sum(kind in ln for ln in port) == sum(kind in ln for ln in ref)
 
 
 def test_native_builds_outside_the_sources():
