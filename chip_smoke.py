@@ -19,16 +19,35 @@ on the card in phases, and exits non-zero at the first phase that fails:
    version and against the host traceback's CIGAR, byte for byte, on B1's
    direction bytes of the polish, gap-fill and leading-insertion cases,
    each with a pair along the band's edge, an empty query and an empty
-   target;
+   target, on a noisy (CLR-like) walk whose runs are a few ops long, and
+   on crafted direction bytes with gap runs longer than 32 ops and longer
+   than a tile (testing/dp_cases.py::walk_cases);
 4. the region step on the card against the same step on the CPU, byte for
    byte: HiFi 30x delta chunks at 15-100 kb and one noisy CLR dense chunk;
 5. the golden HIFI fixture through the port's CLI in device mode, equal to
    tests/data/golden/hifi/expected.vcf byte for byte;
 6. 32 simulated HiFi regions (15-100 kb at 30x) as BAM + FASTA + BED through
-   run_target_mode: guided consensus on all of them and OLC assembly on 8,
+   run_target_mode: guided consensus on all of them and OLC assembly on 4,
    in device mode with every DP job sent to the device batch, and in host
    mode; each device VCF must equal its host VCF, and both kernels must
-   have been launched.
+   have been launched;
+7. the same 32 regions as per-region BAM and reference files through the
+   multi-process executor (pipeline/mp_exec.py) with 8 children, two passes
+   on the warm executor: records equal to the in-process build_tile ->
+   run_device_step -> process_region_device path, and no child initialised
+   CUDA;
+8. complex SVs: an inversion and a translocation as typed windows and a
+   tandem duplication carried as an INS record through complexsv.cli in
+   target mode, and call_dup_from_contigs on phase 6's OLC contigs, with
+   the host DP shortcut off so that every gap fill of the aligner runs B1
+   and B4; the VCFs must equal those of the same run on the CPU
+   (FOCALSV_TORCH_DEVICE=cpu, in a subprocess), and both kernels must
+   have been launched;
+9. the pair-HMM forward pass on the card against the CPU at the
+   realignment shape (4,000 windows of 29 bases) within 1e-3, and one
+   host-mode region with use_pairhmm=True on the card against the CPU;
+10. evaluation.cli bench of phase 6's device VCF against the simulation's
+   truth; prints F1.
 
 The last two lines are the kernels' JSON record and the result line.  A
 kernel's bound_ms is the larger of its bytes (each input read once, each
@@ -55,7 +74,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE_MIX = (15_000, 30_000, 50_000, 100_000)   # bench.py's region sizes
 COVERAGE = 30.0
 N_REGIONS = 32
-N_OLC_REGIONS = 8
+N_OLC_REGIONS = 4
 OLC_SCORING = dict(match=2, mismatch=-4, gap_open=-4, gap_extend=-2)
 ALIGNER_SCORING = dict(match=2, mismatch=-8, gap_open=-24, gap_extend=-2)
 UNIT_COSTS = dict(match=0, mismatch=-1, gap_open=-1, gap_extend=-1)
@@ -159,11 +178,12 @@ def kernel_parity(rng, cases):
     rows of both kernels."""
     from focalsv_tpu_torch.ops import align as talign
     from focalsv_tpu_torch.ops import align_cuda
-    from focalsv_tpu_torch.testing.dp_cases import dp_pairs
+    from focalsv_tpu_torch.testing.dp_cases import dp_pairs, noisy_pairs
     b1_rows, b4_rows = [], []
     for name, B, Lq, W, q_lo, scoring, store, lead, also, tb_plain in cases:
-        args = [torch.from_numpy(a).to(DEVICE) for a in
-                dp_pairs(rng, B, Lq, W, q_lo, leading_ins=lead, edge=store)]
+        pairs = (noisy_pairs(rng, B, Lq, W, q_lo) if name == "noisy_clr" else
+                 dp_pairs(rng, B, Lq, W, q_lo, leading_ins=lead, edge=store))
+        args = [torch.from_numpy(a).to(DEVICE) for a in pairs]
         q, q_len, t, t_len, d_lo = args
 
         def kernel(a=args):
@@ -219,6 +239,7 @@ def traceback_parity(name, dirs, scores, q_len, t_len, d_lo, W, Lq, n_plain):
     traceback's CIGAR on the pairs among them that scored."""
     from focalsv_tpu_torch.ops import align as talign
     from focalsv_tpu_torch.ops import align_cuda
+    from focalsv_tpu_torch.testing.dp_cases import walk_decisions
     B = dirs.shape[0]
 
     def kernel():
@@ -244,12 +265,16 @@ def traceback_parity(name, dirs, scores, q_len, t_len, d_lo, W, Lq, n_plain):
         host_same = host_same and got == host
         host_n += 1
     steps = int(n_k.sum())
+    ops_h, n_h = ops_k.cpu().numpy(), n_k.cpu().numpy()
+    # the walk's dependent decisions: one per 32 ops of each run
+    decisions = max(walk_decisions(ops_h[b], int(n_h[b])) for b in range(B))
     nbytes = steps + ops_k.numel() + 16 * B     # a dirs byte a step, the ops
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = steps * B4_OPS_PER_STEP / INT32_OPS_PER_S * 1e3
     log(f"[b4] {name}: B={B} Lq={Lq} W={W} max_abs_err={err} "
         f"(plain on {n_plain} pairs) host_cigar_equal={host_same} "
-        f"(on {host_n} pairs) mean_ops={steps / B:.0f} kernel_ms={ms:.3f} "
+        f"(on {host_n} pairs) mean_ops={steps / B:.0f} "
+        f"longest_walk_decisions={decisions} kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.1f} bound_ms={max(t_bytes, t_ops):.5f}")
     if err != 0 or not host_same or host_n == 0:
         raise AssertionError(f"B4 differs from its plain version or from "
@@ -257,6 +282,32 @@ def traceback_parity(name, dirs, scores, q_len, t_len, d_lo, W, Lq, n_plain):
     return dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def walk_parity() -> int:
+    """B4 against its plain version on crafted direction bytes: gap runs
+    longer than 32 ops, than a tile's 64 rows and 128 columns, runs ending
+    on the band's edge, a full op string, random bytes.  Returns the
+    largest difference (0 or the run fails)."""
+    from focalsv_tpu_torch.ops import align as talign
+    from focalsv_tpu_torch.ops import align_cuda
+    from focalsv_tpu_torch.testing.dp_cases import walk_cases
+    worst = 0
+    for name, dirs, q_len, t_len, d_lo, W, M in walk_cases(with_stop=True):
+        case = [torch.from_numpy(a).to(DEVICE) for a in (dirs, q_len, t_len,
+                                                         d_lo)]
+        ops_k, n_k = align_cuda.traceback_cuda(*case, W, M)
+        ops_p, n_p = talign.traceback_device(*case, W, M)
+        sync()
+        err = max(int((ops_k.int() - ops_p.int()).abs().max()),
+                  int((n_k - n_p).abs().max()))
+        log(f"[b4] walk {name}: B={len(dirs)} M={M} W={W} max_abs_err={err} "
+            f"n={n_k.tolist()}")
+        if err != 0:
+            raise AssertionError(f"B4 differs from its plain version on the "
+                                 f"crafted walk {name}")
+        worst = max(worst, err)
+    return worst
 
 
 B1_CASES = [
@@ -268,6 +319,8 @@ B1_CASES = [
      (), 128),
     ("leading_insertion", 32, 1024, 128, 300, OLC_SCORING, True, True, (),
      32),
+    # about 15 % error: the walk changes state every few ops
+    ("noisy_clr", 16, 4096, 512, 3000, OLC_SCORING, True, False, (1,), 4),
     # register kernel, 16 warps a pair
     ("edit_sim_w8192", 4, 16384, 8192, 12000, UNIT_COSTS, False, False, (),
      0),
@@ -422,7 +475,8 @@ def run_mode(bam, fa, bed, out, method, mode, n):
             stats = json.load(f)
     with open(os.path.join(out, "chr21", "log", "stage_times.json")) as f:
         stages = {k: v["seconds"] for k, v in json.load(f).items()}
-    if stats:
+    stats["wall_s"] = secs
+    if mode == "device":
         stages.update({k: round(stats[k], 3) for k in (
             "tile_build_s", "device_wait_s", "finish_s", "device_busy_s")})
     log(f"[slice] {method} {mode} stage seconds: {json.dumps(stages)}")
@@ -435,7 +489,8 @@ def run_mode(bam, fa, bed, out, method, mode, n):
            f"d2h_bytes={int(stats['d2h_bytes'])} "
            f"dp_jobs={stats.get('dp_jobs', 0)} "
            f"dp_batches={stats.get('dp_batches', 0)} "
-           f"dp_d2h_bytes={stats.get('dp_d2h_bytes', 0)}" if stats else ""))
+           f"dp_d2h_bytes={stats.get('dp_d2h_bytes', 0)}"
+           if mode == "device" else ""))
     return vcf, stats, n_rec
 
 
@@ -484,7 +539,258 @@ def slice_run(regions, work: str):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"slice checks failed: {failed}")
-    return launches, tb_launches
+    return dict(b1=launches, b4=tb_launches, fasta=fa,
+                guided_vcf=f"{work}/guided_device/FocalSV_Final_SV.vcf",
+                olc_out=f"{work}/olc_device",
+                guided_rps=n_all / g_stats["wall_s"])
+
+
+# -- phase 7 ----------------------------------------------------------------
+
+def _record_keys(res):
+    return [(r.pos, r.ref, r.alt, r.gt) for r in res.records]
+
+
+def mp_executor(regions, work: str, threaded_rps: float) -> None:
+    """The regions as per-region BAM + .npy jobs through MpRegionExecutor
+    (8 children, two passes) against the in-process path."""
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.io.bam import BamReader
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    from focalsv_tpu_torch.pipeline.mp_exec import MpRegionExecutor
+    from focalsv_tpu_torch.testing import simulate as sim
+    cfg = preset("HIFI")
+    os.makedirs(f"{work}/mp", exist_ok=True)
+    jobs = []
+    t0 = time.perf_counter()
+    for i, rg in enumerate(regions):
+        bam, ref = f"{work}/mp/r{i}.bam", f"{work}/mp/r{i}.npy"
+        sim.write_region_bam(rg, bam)
+        np.save(ref, rg.ref)
+        jobs.append((bam, ref, rg.chrom))
+    t1 = time.perf_counter()
+    want = []
+    for bam, ref, chrom in jobs:
+        tile = dx.build_tile(list(BamReader(bam)), np.load(ref), 0, chrom,
+                             cfg)
+        dev = dx.run_device_step([tile], cfg, device=DEVICE)
+        want.append(_record_keys(dx.process_region_device(tile, dev.get(0),
+                                                          cfg)))
+    t2 = time.perf_counter()
+    log(f"[mp] {len(jobs)} region files written in {t1 - t0:.1f} s; "
+        f"in-process path, one region at a time: {t2 - t1:.2f} s = "
+        f"{len(jobs) / (t2 - t1):.3f} regions/s, "
+        f"{sum(map(len, want))} records")
+    t0 = time.perf_counter()
+    with MpRegionExecutor(cfg, n_children=8, device=DEVICE) as ex:
+        for n_pass in (1, 2):
+            stats: dict = {}
+            t1 = time.perf_counter()
+            out = ex.run(jobs, collect="records", stats=stats)
+            secs = time.perf_counter() - t1
+            got = [_record_keys(res) for _n, res in out]
+            log(f"[mp] pass {n_pass}: {len(jobs)} regions in {secs:.2f} s = "
+                f"{len(jobs) / secs:.3f} regions/s with 8 children"
+                + (f" ({time.perf_counter() - t0:.2f} s with their start)"
+                   if n_pass == 1 else "")
+                + f"; threaded run_target_mode in phase 6: "
+                f"{threaded_rps:.3f} regions/s; records_equal={got == want} "
+                f"n_chunks={stats['n_chunks']} "
+                f"n_host_fallback={stats['n_host_fallback']} "
+                f"children_with_cuda={stats['cuda_initialized']} "
+                f"tile_build_s={stats['tile_build_s']:.2f} "
+                f"finish_s={stats['finish_s']:.2f} "
+                f"device_busy_s={stats['device_busy_s']:.2f}")
+            if got != want:
+                raise AssertionError("the multi-process executor's records "
+                                     "differ from the in-process path")
+            if stats["cuda_initialized"] != 0:
+                raise AssertionError("a child of the executor initialised "
+                                     "CUDA")
+            if stats["n_chunks"] == 0:
+                raise AssertionError("no chunk reached the region step")
+    if any(p.is_alive() for p in ex.procs):
+        raise AssertionError("a child of the executor outlived close()")
+
+
+# -- phase 8 ----------------------------------------------------------------
+
+def complex_inputs(work: str) -> None:
+    """One BAM with an inversion on chr21 and a translocation between chr1
+    and chr2, a FASTA, a typed BED and an INS VCF whose first record is a
+    tandem duplication."""
+    from focalsv_tpu_torch.io.fasta import write_fasta
+    from focalsv_tpu_torch.io.vcf import write_vcf
+    from focalsv_tpu_torch.testing import complex_cases as cc
+    d = f"{work}/complex"
+    os.makedirs(d, exist_ok=True)
+    ref, reads = cc.inversion_reads()
+    rng = np.random.default_rng(77)
+    others = [rng.integers(0, 4, 200_000).astype(np.uint8) for _ in range(2)]
+    inv = cc.align_reads(ref, reads)
+    for r in inv:
+        r.ref_id = 2
+    cc.write_bam(f"{d}/reads.bam", cc.translocation_records() + inv,
+                 ["chr1", "chr2", "chr21"], [200_000, 200_000, len(ref)])
+    write_fasta(f"{d}/ref.fa", [("chr1", others[0]), ("chr2", others[1]),
+                                ("chr21", ref)])
+    with open(f"{d}/typed.bed", "w") as f:
+        f.write("chr21\t15000\t27000\tINV\n"
+                "chr1\t95000\t105000\tTRA\n")
+    write_vcf(f"{d}/ins.vcf", cc.dup_as_ins_records(ref=ref)[1])
+
+
+def complex_run(work: str, tag: str, olc_out: str, fasta: str) -> None:
+    """The complex-SV CLI in target mode on complex_inputs' files, and the
+    contig DUP caller on the OLC run's contigs; VCFs under work/complex/tag.
+    Runs on the card in the smoke run and on the CPU in its subprocess."""
+    import io
+    from contextlib import redirect_stdout
+
+    from focalsv_tpu_torch.complexsv import cli as ccli
+    from focalsv_tpu_torch.complexsv.target import call_dup_from_contigs
+    from focalsv_tpu_torch.io.fasta import FastaFile
+    from focalsv_tpu_torch.io.vcf import write_vcf
+    d = f"{work}/complex"
+    with redirect_stdout(io.StringIO()):
+        rc = ccli.main(["--mode", "target", "--bam_file", f"{d}/reads.bam",
+                        "--bed_file", f"{d}/typed.bed", "--ref_file",
+                        f"{d}/ref.fa", "--indel_vcf", f"{d}/ins.vcf", "-d",
+                        "HIFI", "-o", f"{d}/{tag}", "--min_support", "2"])
+    if rc != 0:
+        raise AssertionError(f"complexsv.cli returned {rc}")
+    dups = call_dup_from_contigs(olc_out, FastaFile.load(fasta), "HIFI",
+                                 min_support=1)
+    write_vcf(f"{d}/{tag}/contig_dups.vcf", dups)
+
+
+def complex_svs(work: str, olc_out: str, fasta: str) -> tuple[int, int]:
+    from focalsv_tpu_torch.ops import align as talign
+    from focalsv_tpu_torch.ops import align_cuda
+    complex_inputs(work)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--complex-cpu", work,
+         olc_out, fasta],
+        env=dict(os.environ, FOCALSV_TORCH_DEVICE="cpu",
+                 CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # on the card every gap fill of the aligner takes the device route (the
+    # CPU run keeps the host DP, whose results are the same bytes)
+    cap = talign.NATIVE_DP_MAX_CELLS
+    talign.NATIVE_DP_MAX_CELLS = 0
+    align_cuda.reset_launches()
+    try:
+        complex_run(work, "card", olc_out, fasta)
+    finally:
+        talign.NATIVE_DP_MAX_CELLS = cap
+        cpu_log = proc.communicate(timeout=600)[0]
+    b1, b4 = align_cuda.launches, align_cuda.traceback_launches
+    if proc.returncode != 0:
+        raise AssertionError(f"the CPU run of phase 8 failed:\n"
+                             f"{cpu_log[-3000:]}")
+    same = {}
+    types = ""
+    for name in ("FocalSV_TRA_INV_DUP.vcf", "contig_dups.vcf"):
+        with open(f"{work}/complex/card/{name}") as f:
+            card = f.read()
+        with open(f"{work}/complex/cpu/{name}") as f:
+            same[name] = card == f.read()
+        types += card
+    found = {t: f"SVTYPE={t}" in types for t in ("INV", "TRA", "DUP")}
+    log(f"[complex] target mode + contig DUPs in "
+        f"{time.perf_counter() - t0:.2f} s: card VCF == CPU VCF {same}, "
+        f"types called {found}, launches on this path: B1 {b1}, B4 {b4}")
+    if not all(same.values()) or not all(found.values()) or not (b1 and b4):
+        raise AssertionError("complex-SV phase failed")
+    return b1, b4
+
+
+# -- phase 9 ----------------------------------------------------------------
+
+def pairhmm_phase(region) -> None:
+    import dataclasses as dc
+
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.ops import pairhmm
+    from focalsv_tpu_torch.pipeline.region import process_region
+    rng = np.random.default_rng(9)
+    B, L = 4000, 29
+    haps = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    reads = np.full((B, L), 5, np.uint8)
+    reads[:, :21] = haps[:, 4:25]
+    flip = rng.random((B, 21)) < 0.05
+    reads[:, :21][flip] = (reads[:, :21][flip] + 1) % 4
+    quals = rng.integers(5, 41, (B, L)).astype(np.int32)
+    rl, hl = np.full(B, 21, np.int32), np.full(B, L, np.int32)
+    kw = dict(max_read=L, max_hap=L)
+    card = pairhmm.pairhmm_forward_batch(reads, rl, haps, hl, quals,
+                                         device=DEVICE, **kw)
+    t0 = time.perf_counter()
+    pairhmm.pairhmm_forward_batch(reads, rl, haps, hl, quals, device=DEVICE,
+                                  **kw)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu = pairhmm.pairhmm_forward_batch(reads, rl, haps, hl, quals,
+                                        device="cpu", **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(card - cpu).max())
+    log(f"[pairhmm] forward B={B} L={L}: card vs CPU max_abs_err={err:.2e} "
+        f"(tolerance 1e-3) finite={bool(np.isfinite(card).all())} "
+        f"card_ms={card_ms:.1f} (host clock, copies included) "
+        f"cpu_ms={cpu_ms:.1f}")
+    if not (np.isfinite(card).all() and err <= 1e-3):
+        raise AssertionError("pair-HMM on the card differs from the CPU")
+    cfg = preset("HIFI")
+    cfg = cfg.replace(phasing=dc.replace(cfg.phasing, use_pairhmm=True))
+    t0 = time.perf_counter()
+    on_card = process_region(region.reads, region.ref, 0, region.chrom, cfg)
+    secs = time.perf_counter() - t0
+    os.environ["FOCALSV_TORCH_DEVICE"] = "cpu"
+    try:
+        on_cpu = process_region(region.reads, region.ref, 0, region.chrom,
+                                cfg)
+    finally:
+        del os.environ["FOCALSV_TORCH_DEVICE"]
+    same = (_record_keys(on_card) == _record_keys(on_cpu)
+            and np.array_equal(on_card.phase_hp, on_cpu.phase_hp))
+    log(f"[pairhmm] host-mode region of {len(region.ref)} bp with "
+        f"use_pairhmm=True: {secs:.2f} s, {on_card.n_phased}/"
+        f"{on_card.n_reads} reads phased, {len(on_card.records)} records, "
+        f"card == CPU {same}")
+    if not same or on_card.n_phased == 0:
+        raise AssertionError("use_pairhmm region on the card differs from "
+                             "the CPU")
+
+
+# -- phase 10 ---------------------------------------------------------------
+
+def evaluation_phase(regions, work: str, call_vcf: str) -> None:
+    import io
+    from contextlib import redirect_stdout
+
+    from focalsv_tpu_torch.evaluation import cli as ecli
+    from focalsv_tpu_torch.evaluation.compare import truth_from_sim
+    from focalsv_tpu_torch.io.vcf import write_vcf
+    offs = np.cumsum([0] + [len(rg.ref) for rg in regions])
+    truth = []
+    for i, rg in enumerate(regions):
+        for rec in truth_from_sim(rg.svs, "chr21", rg.ref):
+            rec.pos += int(offs[i])
+            truth.append(rec)
+    write_vcf(f"{work}/truth.vcf", truth)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = ecli.main(["bench", "--call", call_vcf, "--truth",
+                        f"{work}/truth.vcf"])
+    res = json.loads(buf.getvalue())
+    log("[eval] guided device VCF against the simulation's truth: "
+        + ", ".join(f"{t} tp={v['tp']} fp={v['fp']} fn={v['fn']} "
+                    f"F1={v['f1']}" for t, v in sorted(res.items())
+                    if isinstance(v, dict) and "f1" in v))
+    f1s = [v["f1"] for v in res.values() if isinstance(v, dict) and "f1" in v]
+    if rc != 0 or not f1s or min(f1s) < 0.5:
+        raise AssertionError(f"evaluation phase failed: {res}")
 
 
 def main() -> int:
@@ -500,6 +806,7 @@ def main() -> int:
     build_kernels()
     rng = np.random.default_rng(0)
     b1, b4 = kernel_parity(rng, B1_CASES)
+    b4.append(dict(case="crafted_walks", max_abs_err=walk_parity()))
     t0 = time.perf_counter()
     regions = _simulate(N_REGIONS)
     log(f"[data] simulated {len(regions)} HiFi regions at {COVERAGE}x in "
@@ -510,19 +817,29 @@ def main() -> int:
                                                                    "build"))
     try:
         golden(work)
-        launches, tb_launches = slice_run(regions, work)
+        main_path = slice_run(regions, work)
+        mp_executor(regions, work, main_path["guided_rps"])
+        complex_b1, complex_b4 = complex_svs(work, main_path["olc_out"],
+                                             main_path["fasta"])
+        pairhmm_phase(regions[0])
+        evaluation_phase(regions, work, main_path["guided_vcf"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
-    for name, source, replaces, rows, n in (
+    for name, source, replaces, rows, n, n_complex in (
             ("banded_align (B1)", "focalsv_tpu_torch/csrc/banded_align.cu",
-             "focalsv_tpu/ops/align_pallas.py:122", b1, launches),
+             "focalsv_tpu/ops/align_pallas.py:122", b1, main_path["b1"],
+             complex_b1),
             ("traceback (B4)", "focalsv_tpu_torch/csrc/traceback.cu",
-             "focalsv_tpu/ops/align.py:308", b4, tb_launches)):
+             "focalsv_tpu/ops/align.py:308", b4, main_path["b4"],
+             complex_b4)):
         polish = next(r for r in rows if r["case"] == "olc_polish")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n,
+            "replaces": replaces, "launches": n + n_complex,
+            # each path was driven with the counts at 0 just before it
+            "launches_by_path": {"target_mode_guided_and_olc": n,
+                                 "complex_sv_target": n_complex},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": polish["ms"], "plain_ms": polish["plain_ms"],
             "bound_ms": polish["bound_ms"], "bound_by": polish["bound_by"],
@@ -537,4 +854,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--complex-cpu":
+        # phase 8's run on the CPU, started by the smoke run itself
+        sys.path.insert(0, ROOT)
+        complex_run(sys.argv[2], "cpu", sys.argv[3], sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

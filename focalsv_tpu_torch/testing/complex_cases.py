@@ -75,11 +75,12 @@ def translocation_records(seed=5, bp1=100_000, bp2=50_000, n=12):
     return recs
 
 
-def dup_as_ins_records(seed=3, ref_len=30_000):
+def dup_as_ins_records(seed=3, ref_len=30_000, ref=None):
     """(ref, records): an 800 bp tandem duplication called as an INS, and a
-    novel INS that is no duplication."""
+    novel INS that is no duplication, on ``ref`` or a random reference."""
     rng = np.random.default_rng(seed)
-    ref = rng.integers(0, 4, ref_len).astype(np.uint8)
+    if ref is None:
+        ref = rng.integers(0, 4, ref_len).astype(np.uint8)
     dup = VcfRecord(
         "chr21", 10_800, "ins1", "A", "A" + enc.decode(ref[10_000:10_800]),
         info={"SVTYPE": "INS", "SVLEN": 800, "TIG_REGION": "c1:0-800"},

@@ -1,5 +1,6 @@
 """Seeded banded-DP inputs at the shapes the main path sends to kernel B1,
-shared by chip_smoke.py and testing/kernel_sweep.py."""
+noisy pairs, and crafted direction bytes for the traceback (kernel B4),
+shared by chip_smoke.py, testing/kernel_sweep.py and the tests."""
 
 from __future__ import annotations
 
@@ -182,3 +183,13 @@ def walk_cases(seed=0, with_stop=False):
         if with_stop:
             cases[-3] = cases[-3] + cases[-1][2:]
     return cases
+
+
+def walk_decisions(ops: np.ndarray, n: int) -> int:
+    """Dependent decisions of one walk: one per 32 ops of each run."""
+    codes = np.asarray(ops[:n])
+    if codes.size == 0:
+        return 0
+    starts = np.concatenate([[0], np.flatnonzero(codes[1:] != codes[:-1]) + 1])
+    lens = np.diff(np.concatenate([starts, [codes.size]]))
+    return int(((lens + 31) // 32).sum())

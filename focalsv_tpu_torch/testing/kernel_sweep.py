@@ -32,7 +32,8 @@ from focalsv_tpu_torch.ops import align as talign
 from focalsv_tpu_torch.ops import align_cuda
 from focalsv_tpu_torch.testing.dp_cases import (ALIGNER_SCORING, OLC_SCORING,
                                                 UNIT_COSTS, dp_pairs,
-                                                noisy_pairs, walk_cases)
+                                                noisy_pairs, walk_cases,
+                                                walk_decisions)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -70,16 +71,6 @@ def smem_load_to_use() -> tuple[float, float]:
         cyc, ns = (float(x) / steps for x in out[:2].tolist())
         best = (cyc, ns) if best is None else min(best, (cyc, ns))
     return best
-
-
-def walk_decisions(ops: np.ndarray, n: int) -> int:
-    """Dependent decisions of one walk: one per 32 ops of each run."""
-    codes = np.asarray(ops[:n])
-    if codes.size == 0:
-        return 0
-    starts = np.concatenate([[0], np.flatnonzero(codes[1:] != codes[:-1]) + 1])
-    lens = np.diff(np.concatenate([starts, [codes.size]]))
-    return int(((lens + 31) // 32).sum())
 
 
 def b4_case(name, dirs, q_len, t_len, d_lo, W, Lq, n_plain, batches,
