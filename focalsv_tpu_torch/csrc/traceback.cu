@@ -29,22 +29,27 @@
 // M runs go up a column (k stays), D runs go left along a row, I runs go up
 // the anti-diagonal (k + 1 a row).  Lane t reads the cell t steps ahead on
 // that line; one __ballot_sync of "this cell continues the run" and one
-// __ffs give the run's length, up to 32 ops a decision, and lane t writes op
-// n + t straight to the op string.  A run is cut where a lane's cell is
+// __ffs give the run's length, up to 32 ops a decision (64 for M runs, the
+// common ones: each lane reads two cells 32 rows apart, and the two loads
+// and ballots overlap), and lane t writes op n + t straight to the op
+// string.  A run is cut where a lane's cell is
 // outside the tile in shared memory, where i, j or the op string runs out,
 // and at the band's edge (a cell off the band reads as 0).
 //
-// The tile: TILE_ROWS rows up from the walker's row, TILE_COLS columns
-// around its cell, in shared memory with a row stride of TILE_STRIDE = 144
-// bytes.  A stride of 128 bytes would put a column's 32 cells into one bank
-// (a 32-way conflict on every M run, the common one).  The copies are
-// cp.async of 16 bytes a lane, whose shared-memory address must be a
-// multiple of 16, so the stride is one too, and 132 bytes (33 words, free of
-// conflicts) is not to be had: it would need 4-byte copies, four times the
-// copy instructions, all issued by the one warp that also walks.  With 144
-// bytes (9 units of 16) a column's 32 cells fall into 8 groups of banks, a
-// 4-way conflict, a few cycles on a decision of some hundred; row reads
-// broadcast and anti-diagonal reads spread likewise.
+// The tile: TILE_ROWS = 128 rows up from the walker's row, TILE_COLS = 64
+// columns around its cell, in shared memory with a row stride of
+// TILE_STRIDE = 80 bytes.  The walk goes up a row an op at most, so a tall
+// narrow tile lasts longest for the bytes it costs: the copies are issued
+// by the one warp that also walks, and their instructions are a third of
+// the walk's time at 128 columns.  A stride equal to a multiple of 128
+// bytes would put a column's 32 cells into one bank (a 32-way conflict on
+// every M run).  The copies are cp.async of 16 bytes a lane, whose
+// shared-memory address must be a multiple of 16, so the stride is one too,
+// and a padding of 4 bytes (free of conflicts) is not to be had: it would
+// need 4-byte copies, four times the copy instructions.  With 80 bytes (5
+// units of 16) a column's 32 cells fall into 8 groups of banks, a 4-way
+// conflict, a few cycles on a decision of some hundred; row reads broadcast
+// and anti-diagonal reads spread likewise.
 //
 // Two tile buffers: when the walker enters a tile, the tile above it (the
 // same columns re-centred on the walker) is requested with cp.async into
@@ -65,10 +70,10 @@ constexpr int DIR_H_MASK = 0b11;
 constexpr int DIR_E_EXT = 0b100;
 constexpr int DIR_F_EXT = 0b1000;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int TILE_ROWS = 64;
-constexpr int TILE_COLS = 128;    // a multiple of 16
-constexpr int TILE_STRIDE = 144;  // bytes a row in shared memory, see above
-constexpr int TILE_LEFT = 48;     // columns kept to the left of the walker
+constexpr int TILE_ROWS = 128;
+constexpr int TILE_COLS = 64;     // a multiple of 16
+constexpr int TILE_STRIDE = 80;   // bytes a row in shared memory, see above
+constexpr int TILE_LEFT = 24;     // columns kept to the left of the walker
 // a lone warp on a scheduler walks fastest, and a batch is at most a few
 // hundred pairs: one warp, one pair, one block
 constexpr int WARPS_PER_BLOCK = 1;
@@ -181,28 +186,41 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) traceback_kernel(
     }
 
     if (state == 0) {
-      // an M run: lane t looks at cell (i - t, j - t), the same k
-      const int it = i - lane;
-      const bool valid = it > 0 && j - lane > 0 && n + lane < BUF;
-      bool avail = true;
-      int p = 0;
+      // an M run: lane t looks at cells (i - t, j - t) and (i - 32 - t,
+      // j - 32 - t), the same k: up to 64 ops a decision, and the second
+      // load and ballot do not wait for the first
+      const int it0 = i - lane;
+      const int it1 = it0 - 32;
+      const bool valid0 = it0 > 0 && j - lane > 0 && n + lane < BUF;
+      const bool valid1 = it1 > 0 && j - 32 - lane > 0 && n + 32 + lane < BUF;
+      bool avail0 = true, avail1 = true;
+      int p0 = 0, p1 = 0;
       if (k_in) {
-        const int rt = min(it - 1, M - 1);
-        avail = rt >= cur.r_lo && rt <= cur.r_hi;
-        if (valid && avail) p = cur.at(rt, k);
+        const int rt0 = min(it0 - 1, M - 1);
+        const int rt1 = min(it1 - 1, M - 1);
+        avail0 = rt0 >= cur.r_lo && rt0 <= cur.r_hi;
+        avail1 = rt1 >= cur.r_lo && rt1 <= cur.r_hi;
+        if (valid0 && avail0) p0 = cur.at(rt0, k);
+        if (valid1 && avail1) p1 = cur.at(rt1, k);
       }
-      const int h2 = p & DIR_H_MASK;
-      const bool known = valid && avail;
-      const unsigned go = __ballot_sync(FULL, known && h2 == 0);
-      const int run = go == FULL ? 32 : __ffs(~go) - 1;
+      const bool known0 = valid0 && avail0;
+      const bool known1 = valid1 && avail1;
+      const int h0 = p0 & DIR_H_MASK;
+      const int h1 = p1 & DIR_H_MASK;
+      const unsigned go0 = __ballot_sync(FULL, known0 && h0 == 0);
+      const unsigned go1 = __ballot_sync(FULL, known1 && h1 == 0);
+      const int run = go0 != FULL ? __ffs(~go0) - 1
+                                  : 32 + (go1 == FULL ? 32 : __ffs(~go1) - 1);
       // the cell that ended the run says where the walk turns to, unless
       // the run was cut (then the loop's head looks again)
-      const int turn = __shfl_sync(FULL, known ? h2 : 0, run & 31);
+      const int mine = run < 32 ? (known0 ? h0 : 0) : (known1 ? h1 : 0);
+      const int turn = __shfl_sync(FULL, mine, run & 31);
       if (lane < run) ob[n + lane] = 0;
+      if (32 + lane < run) ob[n + 32 + lane] = 0;
       n += run;
       i -= run;
       j -= run;
-      if (run < 32) {
+      if (run < 64) {
         if (turn == 3) break;           // no cell of B1 holds 3: stop
         state = turn;
       }

@@ -170,18 +170,16 @@ def walk_cases(seed=0, with_stop=False):
         (150, 150, -50, [(2, 34), (0, 116)])])
     for W, M in ((48, 200), (160, 100), (300, 40)):
         noise = rng.integers(0, 16, (6, M, W)).astype(np.uint8)
-        if with_stop:
-            cases.append((f"random_stop_w{W}", noise.copy()))
-        noise[noise & 3 == 3] &= 0b1110
-        cases.append((f"random_bytes_w{W}", noise,
-                      rng.integers(0, M + 1, 6).astype(np.int32),
-                      rng.integers(0, M + W, 6).astype(np.int32),
-                      rng.integers(-W, W // 2 + 1, 6).astype(np.int32), W, M))
+        rest = (rng.integers(0, M + 1, 6).astype(np.int32),
+                rng.integers(0, M + W, 6).astype(np.int32),
+                rng.integers(-W, W // 2 + 1, 6).astype(np.int32), W, M)
         gaps = rng.choice(np.array([0, 5, 10, 13, 14, 1, 2], np.uint8),
                           (6, M, W), p=[.5, .2, .2, .03, .03, .02, .02])
-        cases.append((f"random_gaps_w{W}", gaps) + cases[-1][2:])
         if with_stop:
-            cases[-3] = cases[-3] + cases[-1][2:]
+            cases.append((f"random_stop_w{W}", noise.copy()) + rest)
+        noise[noise & 3 == 3] &= 0b1110
+        cases.append((f"random_bytes_w{W}", noise) + rest)
+        cases.append((f"random_gaps_w{W}", gaps) + rest)
     return cases
 
 
