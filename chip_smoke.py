@@ -255,17 +255,17 @@ def traceback_parity(name, dirs, scores, q_len, t_len, d_lo, W, Lq, n_plain):
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max(int((ops_k[:n_plain].int() - ops_p.int()).abs().max()),
               int((n_k[:n_plain] - n_p).abs().max()))
+    ops_h, n_h = ops_k.cpu().numpy(), n_k.cpu().numpy()
     host_same, host_n = True, 0
     for b in range(n_plain):
         if int(scores[b]) <= talign.NEG // 2:
             continue                # off the band: no alignment to walk
         host = talign.traceback(dirs[b].cpu().numpy(), int(q_len[b]),
                                 int(t_len[b]), int(d_lo[b]))
-        got = talign.ops_to_cigar(ops_k[b].cpu().numpy(), int(n_k[b]))
+        got = talign.ops_to_cigar(ops_h[b], int(n_h[b]))
         host_same = host_same and got == host
         host_n += 1
-    steps = int(n_k.sum())
-    ops_h, n_h = ops_k.cpu().numpy(), n_k.cpu().numpy()
+    steps = int(n_h.sum())
     # the walk's dependent decisions: one per 32 ops of each run
     decisions = max(walk_decisions(ops_h[b], int(n_h[b])) for b in range(B))
     nbytes = steps + ops_k.numel() + 16 * B     # a dirs byte a step, the ops
