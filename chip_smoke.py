@@ -793,6 +793,58 @@ def evaluation_phase(regions, work: str, call_vcf: str) -> None:
         raise AssertionError(f"evaluation phase failed: {res}")
 
 
+def child_pids() -> list[int]:
+    """The processes whose parent is this one, zombies left out."""
+    me, out = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except OSError:              # ended while we looked
+            continue
+        if int(ppid) == me and state != "Z":
+            out.append(int(name))
+    return out
+
+
+def stop_helpers() -> list[int]:
+    """End what the run started besides its own children: the process in
+    which multiprocessing tracks the executor's semaphores would otherwise
+    outlive this one by a moment.  Returns the processes that were still
+    running after that, each of them killed."""
+    import gc
+    import signal
+    from multiprocessing import resource_tracker
+    gc.collect()                     # the executor's queues unregister
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None:
+        if hasattr(tracker, "_stop"):
+            tracker._stop()
+        else:
+            os.close(tracker._fd)
+            os.waitpid(tracker._pid, 0)
+            tracker._fd = tracker._pid = None
+    left = child_pids()
+    deadline = time.monotonic() + 10.0
+    while left and time.monotonic() < deadline:
+        time.sleep(0.1)
+        for pid in left:
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                pass
+        left = child_pids()
+    for pid in left:
+        os.kill(pid, signal.SIGKILL)
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+    return left
+
+
 def main() -> int:
     device_check()
     if not os.path.isdir(os.path.join(ROOT, "focalsv_tpu_torch")):
@@ -825,6 +877,10 @@ def main() -> int:
         evaluation_phase(regions, work, main_path["guided_vcf"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    left = stop_helpers()
+    log(f"[exit] processes of this run still running: {left}")
+    if left:
+        raise AssertionError(f"the run left processes behind: {left}")
     kernels = []
     for name, source, replaces, rows, n, n_complex in (
             ("banded_align (B1)", "focalsv_tpu_torch/csrc/banded_align.cu",
@@ -859,4 +915,8 @@ if __name__ == "__main__":
         sys.path.insert(0, ROOT)
         complex_run(sys.argv[2], "cpu", sys.argv[3], sys.argv[4])
         sys.exit(0)
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_helpers()               # on a failed phase too
+    sys.exit(code)

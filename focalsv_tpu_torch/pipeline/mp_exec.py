@@ -337,6 +337,15 @@ class MpRegionExecutor:
             p.join(timeout=5)
             if p.is_alive():
                 p.terminate()
+                p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        # end the queues' feeder threads and drop their pipes, so nothing of
+        # the executor is left to the interpreter's exit
+        for q in [self.req_q, *self.cmd_qs]:
+            q.close()
+            q.cancel_join_thread()
 
     def __enter__(self):
         return self
