@@ -1,12 +1,12 @@
-"""Multi-host orchestration: jax.distributed init + per-host region sharding.
+"""Multi-host orchestration: torch.distributed init + per-host region sharding.
 
 Replaces the reference's manual per-chromosome SLURM pattern (README.md:207-213:
 one job per chromosome into a shared out_dir, then `cat | vcf-sort`): every
-host initializes `jax.distributed`, takes its contiguous shard of the region
-list (the `split_bed` analog), runs the chromosome driver on its shard, and
-host 0 merges the resulting per-host VCFs (the all-gather happens at the
-file level for variable-length records; fixed-width candidate tensors can
-instead ride `parallel/mesh.py`'s all_gather).
+host joins one `torch.distributed` process group, takes its contiguous shard
+of the region list (the `split_bed` analog), runs the chromosome driver on
+its shard, and the hosts' records meet either in a collective gather over
+the group (parallel/gather.py) or, where no group was set up, in host 0's
+merge of the per-host VCFs on a shared file system.
 """
 
 from __future__ import annotations
@@ -17,16 +17,47 @@ from focalsv_tpu_torch.io.bed import Region
 
 
 def initialize(coordinator: str | None = None, num_processes: int | None = None,
-               process_id: int | None = None) -> tuple[int, int]:
-    """Initialize jax.distributed (no-op on single host).  Returns
-    (process_index, process_count)."""
-    import jax
-    if num_processes is not None and num_processes > 1:
-        jax.distributed.initialize(
-            coordinator_address=coordinator,
-            num_processes=num_processes,
-            process_id=process_id)
-    return jax.process_index(), jax.process_count()
+               process_id: int | None = None,
+               backend: str | None = None) -> tuple[int, int]:
+    """Join the process group of ``num_processes`` processes whose TCP store
+    is at ``coordinator`` ("host:port"), as rank ``process_id``.  Returns
+    (rank, world size).  A no-op returning (0, 1) for a single process that
+    names no coordinator.
+
+    ``backend``: "nccl" by default when the process runs on a card (one
+    card a rank) and "gloo" when it was asked for the CPU
+    (device.resolve_device); two ranks that share one card name "gloo"."""
+    import torch
+    import torch.distributed as dist
+    if num_processes is None or (num_processes <= 1 and coordinator is None):
+        return 0, 1
+    if coordinator is None:
+        raise ValueError(f"{num_processes} processes need a coordinator")
+    from focalsv_tpu_torch.device import resolve_device
+    device = resolve_device()
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend == "nccl" and device.index is not None:
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes,
+                            rank=process_id or 0)
+    return dist.get_rank(), dist.get_world_size()
+
+
+def world_size() -> int:
+    """The size of the process group this process joined (1 without one)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def shutdown() -> None:
+    """Leave the process group, if this process joined one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def shard_regions(regions: list[Region], process_index: int,

@@ -1,14 +1,13 @@
-"""Collective SV-record gather: device all_gather instead of file merge.
+"""Collective SV-record gather: all_gather instead of file merge.
 
 The reference's multi-node story is "one SLURM job per chromosome into a
 shared out_dir, then `cat | vcf-sort`" (README.md:207-213, focalsv.py:66-70)
 -- the filesystem as the all-gather fabric.  Here the gather point rides the
-accelerator interconnect: each host serializes its shard's VCF records into
-one flat byte payload plus a per-record length vector, both are
-all_gathered across processes via device collectives
-(`jax.experimental.multihost_utils` -- ICI within a slice, DCN across
-hosts), and host 0 decodes, cross-shard-dedups once, and writes the
-genome-wide VCF.  SURVEY.md section 2.3's TPU-native equivalent.
+process group's interconnect: each host serializes its shard's VCF records
+into one flat byte payload plus a per-record length vector, both are
+all_gathered across processes (`torch.distributed`: NCCL between cards,
+gloo between CPUs), and host 0 decodes, cross-shard-dedups once, and writes
+the genome-wide VCF.
 
 Wire format: OFFSET-ENCODED, not fixed-width.  A padded (N, W_max) matrix
 would let one long-ALT INS record (a 50 kb insertion carries its full
@@ -54,22 +53,35 @@ def decode_records(flat: np.ndarray, lens: np.ndarray) -> list[VcfRecord]:
     return out
 
 
-def allgather_records(records: list[VcfRecord]) -> list[VcfRecord]:
-    """All hosts' records, gathered over device collectives.
+def _process_allgather(x: np.ndarray) -> np.ndarray:
+    """Every process's ``x`` (same shape and dtype on all of them), stacked
+    by rank: (world size, *x.shape).  Under NCCL the tensors live on the
+    process's card, under gloo on the CPU."""
+    import torch
+    import torch.distributed as dist
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if dist.get_backend() == "nccl":
+        t = t.to(torch.device("cuda", torch.cuda.current_device()))
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return torch.stack(out).cpu().numpy()
 
-    Every participating jax process must call this (it is a collective).
+
+def allgather_records(records: list[VcfRecord]) -> list[VcfRecord]:
+    """All hosts' records, gathered over the process group.
+
+    Every process of the group must call this (it is a collective).
     Returns the concatenated global record list on every host, ordered by
-    process index.  Single-process: returns ``records`` unchanged.
+    rank.  Single-process: returns ``records`` unchanged.
     """
-    import jax
-    if jax.process_count() <= 1:
+    from focalsv_tpu_torch.parallel.distributed import world_size
+    if world_size() <= 1:
         return list(records)
-    from jax.experimental import multihost_utils
 
     flat, lens = encode_records(records)
     # round 1: agree on the global (max record count, max payload bytes)
     dims = np.array([lens.size, flat.size], np.int64)
-    all_dims = np.asarray(multihost_utils.process_allgather(dims))
+    all_dims = _process_allgather(dims)
     n_max = int(all_dims[:, 0].max())
     b_max = int(all_dims[:, 1].max())
     # round 2: lengths and flat payload, padded to the largest host only
@@ -77,8 +89,8 @@ def allgather_records(records: list[VcfRecord]) -> list[VcfRecord]:
     lens_p[: lens.size] = lens
     flat_p = np.zeros(max(b_max, 1), np.uint8)
     flat_p[: flat.size] = flat
-    g_lens = np.asarray(multihost_utils.process_allgather(lens_p))
-    g_flat = np.asarray(multihost_utils.process_allgather(flat_p))
+    g_lens = _process_allgather(lens_p)
+    g_flat = _process_allgather(flat_p)
     out: list[VcfRecord] = []
     for p in range(g_lens.shape[0]):
         n_p = int(all_dims[p, 0])

@@ -29,19 +29,48 @@ enforces.
 Transfer format: each chunk arrives as ONE uint8 buffer (parallel/wire.py
 delta_flat_layout / rows_flat_layout) and results leave as one flat uint8
 buffer per region (wire.flat_layout / flat_layout_rle).
+
+The ``sharded_*`` entries split a region batch over a mesh
+(parallel/mesh.py): host arrays in, each shard's step on its device and its
+own stream, the unsharded call's result back on the host in region order.
+Where the reference caches a jitted ``shard_map`` per mesh and shape to
+avoid retracing, there is nothing to cache here.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from focalsv_tpu_torch.parallel.wire import (BLOCK, DEL_SYM, NOCOV,
-                                       delta_flat_layout, rows_flat_layout)
+from focalsv_tpu_torch.parallel.mesh import (PendingResult, host_array,
+                                       map_to_host, split_batch)
+# flat_layout, pack_row_tile and unflatten_result live in wire.py (no torch
+# needed) and are handed on to this module's callers, as the reference does
+from focalsv_tpu_torch.parallel.wire import (BLOCK, DEL_SYM, NOCOV,  # noqa: F401
+                                       delta_flat_layout, flat_layout,
+                                       pack_row_tile, rows_flat_layout,
+                                       unflatten_result)
 
 i32 = torch.int32
 ALLELE_CODES = (0, 1, 2, 3, DEL_SYM)
 # working-set bound of the dense entry: expanded (R, L) pileups alive at once
 DENSE_INNER = 8
+# the step's knobs and their defaults (phase_consensus_kwargs sets the first
+# eight from a PhasingConfig)
+STEP_DEFAULTS = dict(
+    max_sites=512, mec_iters=30, min_site_depth=4, min_minor_count=2,
+    lo_num=1, lo_den=4,         # min_allele_frac as a rational
+    hi_num=3, hi_den=4,         # max_allele_frac as a rational
+    purify_window=4, purify_min_pairs=4,
+    purify_num=1, purify_den=2,  # purify min_corr as a rational
+)
+
+
+def _step_kw(kw: dict) -> dict:
+    unknown = set(kw) - set(STEP_DEFAULTS)
+    if unknown:
+        raise TypeError(f"unknown region-step arguments {sorted(unknown)}")
+    return {**STEP_DEFAULTS, **kw}
 
 
 def _argmax_first(x: torch.Tensor) -> torch.Tensor:
@@ -593,6 +622,93 @@ def phase_consensus_delta_flat(
     return _flat_parts(out, L)
 
 
+def phase_consensus_batch(mat: torch.Tensor, read_valid: torch.Tensor,
+                          **kw):
+    """Unpacked-tile entry (tests, dry runs): mat (G, R, L) uint8 pileup
+    tiles (254 = del, 255 = nocov), read_valid (G, R) bool.  Returns, with a
+    leading G axis: site_pos (S,) i32, n_sites i32, A (R, S) i8, hp (R,) i8,
+    sym (2, L) u8, covered (2, L) bool."""
+    G, _, L = mat.shape
+    ltrue = torch.full((G,), L, dtype=i32, device=mat.device)
+    return _one_region(mat, read_valid, ltrue, **_step_kw(kw))[:6]
+
+
+def _dense_inner(G: int, one) -> torch.Tensor:
+    """``one(g0, g1)`` over DENSE_INNER regions at a time, concatenated:
+    the expanded (R, L) pileups and their vote temporaries exist for one
+    inner chunk at a time."""
+    return torch.cat([one(g0, min(g0 + DENSE_INNER, G))
+                      for g0 in range(0, G, DENSE_INNER)], 0)
+
+
+def phase_consensus_batch_packed(packed: torch.Tensor,
+                                 read_valid: torch.Tensor, *, L: int, **kw
+                                 ) -> torch.Tensor:
+    """Packed 4-bit tiles in (packed (G, R, L//2), wire.pack_nibbles), ONE
+    flat uint8 buffer per region out (flat_layout).  L must be a multiple
+    of 8."""
+    kw = _step_kw(kw)
+    G = packed.shape[0]
+    ltrue = torch.full((G,), L, dtype=i32, device=packed.device)
+
+    def one(g0, g1):
+        m = _unpack_nibbles(packed[g0:g1], L)
+        return _flat_parts(_one_region(m, read_valid[g0:g1], ltrue[g0:g1],
+                                       **kw), L)
+
+    return _dense_inner(G, one)
+
+
+def phase_consensus_delta(ref, starts, ends, read_valid, sub_pos, sub_read,
+                          sub_sym, del_read, del_a, del_b, ltrue=None, *,
+                          L: int, **kw) -> torch.Tensor:
+    """DELTA-encoded region tiles as separate tensors (the arguments of
+    `_one_region_delta`; ltrue None = L): ONE flat uint8 buffer per region
+    out (flat_layout), bit-identical to the dense-tile entries."""
+    if ltrue is None:
+        ltrue = torch.full((ref.shape[0],), L, dtype=i32, device=ref.device)
+    return _flat_parts(_one_region_delta(
+        ref, starts, ends, read_valid, sub_pos, sub_read, sub_sym, del_read,
+        del_a, del_b, ltrue, **_step_kw(kw)), L)
+
+
+def phase_consensus_rows_packed(packed_rows: torch.Tensor,
+                                row_qstart: torch.Tensor,
+                                read_valid: torch.Tensor, ltrue=None, *,
+                                L: int, W: int, **kw) -> torch.Tensor:
+    """COMPACT row tiles: packed_rows (G, R, W//2) split-half packed rows,
+    row_qstart (G, R) int32 region BLOCK index of each row (the host
+    pre-shifts each row by start % BLOCK), read_valid (G, R) bool, ltrue
+    (G,) int32 true region lengths (None = L).  Rows expand into the (R, L)
+    pileup on the device, BLOCK-contiguous chunks at a time, at most
+    DENSE_INNER expanded pileups at once.  Output: (G, bytes) uint8 in
+    flat_layout."""
+    kw = _step_kw(kw)
+    if L % BLOCK or W % BLOCK:
+        raise ValueError(f"L={L} and W={W} must be multiples of {BLOCK}")
+    nb_out, nb_in = L // BLOCK, W // BLOCK
+    G, R = packed_rows.shape[:2]
+    dev = packed_rows.device
+    if ltrue is None:
+        ltrue = torch.full((G,), L, dtype=i32, device=dev)
+
+    def one(g0, g1):
+        n = g1 - g0
+        rb = _unpack_nibbles(packed_rows[g0:g1], W).reshape(n, R, nb_in,
+                                                            BLOCK)
+        idx = (torch.arange(nb_out, dtype=i32, device=dev)[None, None]
+               - row_qstart[g0:g1, :, None])                  # (n, R, nb_out)
+        inb = (idx >= 0) & (idx < nb_in)
+        gat = torch.gather(rb, 2, torch.clamp(idx, 0, nb_in - 1).long()
+                           [..., None].expand(n, R, nb_out, BLOCK))
+        m = torch.where(inb[..., None], gat, NOCOV).to(torch.uint8
+                                                       ).reshape(n, R, L)
+        return _flat_parts(_one_region(m, read_valid[g0:g1], ltrue[g0:g1],
+                                       **kw), L)
+
+    return _dense_inner(G, one)
+
+
 def phase_consensus_rows_flat(
     buf: torch.Tensor,       # (total,) uint8, rows_flat_layout
     *,
@@ -608,39 +724,19 @@ def phase_consensus_rows_flat(
     purify_num: int = 1, purify_den: int = 2,
 ) -> torch.Tensor:
     """Production entry for COMPACT row chunks (the dense fallback):
-    rows expand into the (R, L) pileup on the device, BLOCK-contiguous
-    chunks at a time (the host pre-shifts each row by start % BLOCK).  At
-    most DENSE_INNER expanded pileups live at once.  Output: (G, bytes)
-    uint8 in flat_layout."""
-    kw = dict(
+    unpacks rows_flat_layout on the buffer's device and runs
+    phase_consensus_rows_packed."""
+    seg = _sections(buf, rows_flat_layout(G, R, W))
+    return phase_consensus_rows_packed(
+        seg("rows").reshape(G, R, W // 2),
+        _u8_to_i32(seg("qstart"), G, R),
+        seg("rv").reshape(G, R) != 0,
+        _u8_to_i32(seg("ltrue"), G), L=L, W=W,
         max_sites=max_sites, mec_iters=mec_iters,
         min_site_depth=min_site_depth, min_minor_count=min_minor_count,
         lo_num=lo_num, lo_den=lo_den, hi_num=hi_num, hi_den=hi_den,
         purify_window=purify_window, purify_min_pairs=purify_min_pairs,
         purify_num=purify_num, purify_den=purify_den)
-    if L % BLOCK or W % BLOCK:
-        raise ValueError(f"L={L} and W={W} must be multiples of {BLOCK}")
-    nb_out, nb_in = L // BLOCK, W // BLOCK
-    seg = _sections(buf, rows_flat_layout(G, R, W))
-    packed = seg("rows").reshape(G, R, W // 2)
-    qstart = _u8_to_i32(seg("qstart"), G, R)
-    rv = seg("rv").reshape(G, R) != 0
-    ltrue = _u8_to_i32(seg("ltrue"), G)
-    outs = []
-    for g0 in range(0, G, DENSE_INNER):
-        g1 = min(g0 + DENSE_INNER, G)
-        n = g1 - g0
-        rb = _unpack_nibbles(packed[g0:g1], W).reshape(n, R, nb_in, BLOCK)
-        idx = (torch.arange(nb_out, dtype=i32, device=buf.device)[None, None]
-               - qstart[g0:g1, :, None])                      # (n, R, nb_out)
-        inb = (idx >= 0) & (idx < nb_in)
-        gat = torch.gather(rb, 2, torch.clamp(idx, 0, nb_in - 1).long()
-                           [..., None].expand(n, R, nb_out, BLOCK))
-        m = torch.where(inb[..., None], gat, NOCOV).to(torch.uint8
-                                                       ).reshape(n, R, L)
-        outs.append(_flat_parts(_one_region(m, rv[g0:g1], ltrue[g0:g1],
-                                            **kw), L))
-    return torch.cat(outs, 0)
 
 
 def phase_consensus_kwargs(phasing_cfg) -> dict:
@@ -655,3 +751,93 @@ def phase_consensus_kwargs(phasing_cfg) -> dict:
         min_minor_count=phasing_cfg.min_minor_count,
         lo_num=lo_num, lo_den=lo_den, hi_num=hi_num, hi_den=hi_den,
     )
+
+
+# ---------------------------------------------------------------------------
+# the entries sharded over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _repack_per_device(buf, lay: dict, names: tuple, G: int, n: int
+                       ) -> list[tuple]:
+    """A G-major wire buffer as n self-contained buffers of G/n regions: a
+    plain slice of the buffer is not a valid layout of G/n regions (every
+    section is G-major), so each section is cut into per-device contiguous
+    blocks and the blocks of a device are concatenated in section order."""
+    if G % n:
+        raise ValueError(f"G={G} does not split over {n} devices")
+    buf = host_array(buf)
+    Gd = G // n
+    parts = []
+    for d in range(n):
+        segs = []
+        for name in names:
+            a, b = lay[name]
+            per = (b - a) // G
+            segs.append(buf[a + d * Gd * per : a + (d + 1) * Gd * per])
+        parts.append((np.concatenate(segs),))
+    return parts
+
+
+def sharded_phase_consensus_delta_flat(buf, mesh, *, G, R, L, Ds, Dd, **kw):
+    """phase_consensus_delta_flat sharded over the mesh: ``buf`` is the host
+    wire buffer (G divisible by the mesh size), re-packed per device.  The
+    (G, bytes) result is on its way into pinned host memory when the call
+    returns (mesh.PendingResult)."""
+    parts = _repack_per_device(
+        buf, delta_flat_layout(G, R, L, Ds, Dd),
+        ("ref", "starts", "ends", "rv", "sub_pos", "sub_read", "sub_sym",
+         "del_read", "del_a", "del_b", "ltrue"), G, mesh.size)
+    hosts, events = map_to_host(
+        mesh, parts, lambda b: phase_consensus_delta_flat(
+            b, G=G // mesh.size, R=R, L=L, Ds=Ds, Dd=Dd, **kw))
+    return PendingResult(hosts[0], events)
+
+
+def sharded_phase_consensus_rows_flat(buf, mesh, *, G, R, L, W, **kw):
+    """phase_consensus_rows_flat sharded over the mesh (per-device re-pack,
+    as sharded_phase_consensus_delta_flat)."""
+    parts = _repack_per_device(buf, rows_flat_layout(G, R, W),
+                               ("rows", "qstart", "rv", "ltrue"), G,
+                               mesh.size)
+    hosts, events = map_to_host(
+        mesh, parts, lambda b: phase_consensus_rows_flat(
+            b, G=G // mesh.size, R=R, L=L, W=W, **kw))
+    return PendingResult(hosts[0], events)
+
+
+def _sharded(mesh, args, fn):
+    """``fn`` over equal shards of host arrays ``args``; the results, whole
+    and in region order, as host tensors (waited for)."""
+    hosts, events = map_to_host(mesh, split_batch(args, mesh.size), fn)
+    for e in events:
+        e.synchronize()
+    return hosts
+
+
+def sharded_phase_consensus_delta(args: tuple, mesh, *, L, **kw):
+    """phase_consensus_delta sharded over the mesh's regions axis."""
+    return _sharded(mesh, args,
+                    lambda *a: phase_consensus_delta(*a, L=L, **kw))[0]
+
+
+def sharded_phase_consensus_rows_packed(packed_rows, row_start, read_valid,
+                                        mesh, *, L, W, **kw):
+    """phase_consensus_rows_packed sharded over the mesh's regions axis."""
+    return _sharded(
+        mesh, (packed_rows, row_start, read_valid),
+        lambda p, st, rv: phase_consensus_rows_packed(p, st, rv, L=L, W=W,
+                                                      **kw))[0]
+
+
+def sharded_phase_consensus(mat, read_valid, mesh, **kw):
+    """phase_consensus_batch sharded over the mesh's regions axis."""
+    return tuple(_sharded(mesh, (mat, read_valid),
+                          lambda m, rv: phase_consensus_batch(m, rv, **kw)))
+
+
+def sharded_phase_consensus_packed(packed, read_valid, mesh, *, L, **kw):
+    """phase_consensus_batch_packed sharded over the mesh's regions axis."""
+    return _sharded(
+        mesh, (packed, read_valid),
+        lambda p, rv: phase_consensus_batch_packed(p, rv, L=L, **kw))[0]

@@ -6,7 +6,8 @@ and each bucket chunk runs phasing + consensus as ONE call of the PyTorch
 region step on the card (`parallel/region_step.phase_consensus_delta_flat`,
 or `phase_consensus_rows_flat` for noisy tiles).  The chunk buffer goes to
 the card through pinned memory, the result comes back into a pinned buffer
-by an asynchronous copy, and a CUDA event says when it has arrived.
+by an asynchronous copy, and a CUDA event says when it has arrived.  With a
+mesh of several devices (parallel/mesh.py) each chunk is split over them.
 The ragged remainder -- insertion consensus, phase-block bookkeeping, contig
 stitching, contig->reference alignment and variant extraction -- finishes on
 host threads, with the aligner's gap DPs batched cross-thread onto the device
@@ -44,6 +45,7 @@ from focalsv_tpu_torch.pipeline.region import (RegionResult, finish_region_resul
                                          process_region)
 from focalsv_tpu_torch.utils.logging import get_logger
 from focalsv_tpu_torch.device import resolve_device
+from focalsv_tpu_torch.parallel.mesh import PendingResult
 
 logger = get_logger("device_exec")
 
@@ -286,55 +288,38 @@ def drle_of(key: tuple) -> int:
     return max(128, key[2] // 512)
 
 
-class PendingResult:
-    """One chunk's region-step result on its way to the host.
-
-    On CUDA the result is copied into pinned host memory by an asynchronous
-    copy queued right behind the step, and ``event`` marks its arrival;
-    ``is_ready`` polls the event and reading the array waits for it.  A CPU
-    result is ready as soon as it exists."""
-
-    def __init__(self, host: torch.Tensor, event=None):
-        self.host = host
-        self.event = event
-
-    def is_ready(self) -> bool:
-        return self.event is None or self.event.query()
-
-    def __array__(self, dtype=None, copy=None):
-        if self.event is not None:
-            self.event.synchronize()
-        out = self.host.numpy()
-        return out if dtype is None else out.astype(dtype)
-
-
 def dispatch_packed(buf: np.ndarray, key: tuple, G: int,
-                    cfg: PipelineConfig, device: torch.device
-                    ) -> PendingResult:
+                    cfg: PipelineConfig, device: torch.device | None,
+                    mesh=None) -> PendingResult:
     """Launch the device step on an already-packed chunk buffer (async on
     CUDA); the result's device->host copy is queued immediately so
-    transfers overlap compute and each other."""
+    transfers overlap compute and each other.  With a mesh of more than one
+    shard the chunk is split over it (G divisible by the mesh size,
+    _batch_size) and ``device`` is not used."""
     from focalsv_tpu_torch.parallel import region_step as rs
     kw = rs.phase_consensus_kwargs(cfg.phasing)
-    src = torch.from_numpy(buf)
-    cuda = device.type == "cuda"
-    if cuda:
-        src = src.pin_memory().to(device, non_blocking=True)
+    sharded = mesh is not None and mesh.size > 1
     if key[0] == "delta":
         _, Rp, Lp, Ds, Dd = key
-        kw["Drle"] = drle_of(key)
-        res = rs.phase_consensus_delta_flat(src, G=G, R=Rp, L=Lp, Ds=Ds,
-                                            Dd=Dd, **kw)
+        kw.update(G=G, R=Rp, L=Lp, Ds=Ds, Dd=Dd, Drle=drle_of(key))
+        if sharded:
+            return rs.sharded_phase_consensus_delta_flat(buf, mesh, **kw)
+        step = rs.phase_consensus_delta_flat
     else:
         _, Rp, Lp, Wp = key
-        res = rs.phase_consensus_rows_flat(src, G=G, R=Rp, L=Lp, W=Wp, **kw)
-    if not cuda:
-        return PendingResult(res)
+        kw.update(G=G, R=Rp, L=Lp, W=Wp)
+        if sharded:
+            return rs.sharded_phase_consensus_rows_flat(buf, mesh, **kw)
+        step = rs.phase_consensus_rows_flat
+    src = torch.from_numpy(buf)
+    if device.type != "cuda":
+        return PendingResult(step(src, **kw))
+    res = step(src.pin_memory().to(device, non_blocking=True), **kw)
     host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
     host.copy_(res, non_blocking=True)
     event = torch.cuda.Event()
     event.record()
-    return PendingResult(host, event)
+    return PendingResult(host, [event])
 
 
 def pack_chunk(tiles, chunk: list[int], key: tuple, G: int) -> np.ndarray:
@@ -353,21 +338,29 @@ def pack_chunk(tiles, chunk: list[int], key: tuple, G: int) -> np.ndarray:
 
 
 def _dispatch_one(tiles: list[RegionTile], chunk: list[int],
-                  key: tuple, G: int, cfg: PipelineConfig, device):
+                  key: tuple, G: int, cfg: PipelineConfig, device, mesh=None):
     """pack_chunk + dispatch_packed."""
     return dispatch_packed(pack_chunk(tiles, chunk, key, G), key, G, cfg,
-                           device)
+                           device, mesh)
+
+
+def _device_of(device, mesh) -> tuple[torch.device, int]:
+    """(the device a chunk runs on when it is not sharded, the count of
+    shards): a mesh names its own devices, else resolve_device decides."""
+    if mesh is not None:
+        return mesh.devices[0], mesh.size
+    return resolve_device(device), 1
 
 
 def dispatch_device_chunks(tiles: list[RegionTile], cfg: PipelineConfig,
-                           device=None
+                           device=None, mesh=None
                            ) -> list[tuple[list[int], tuple, object]]:
     """Dispatch every bucketizable tile through the device region step.
 
     Returns [(tile_indices, bucket_key, device_result)] with all chunks in
     flight.  Tiles that exceed the tile bounds are absent (host fallback).
     """
-    device = resolve_device(device)
+    device, n_devices = _device_of(device, mesh)
     buckets: dict[tuple[int, int, int], list[int]] = {}
     for i, t in enumerate(tiles):
         key = _bucket_key(t, cfg)
@@ -375,18 +368,18 @@ def dispatch_device_chunks(tiles: list[RegionTile], cfg: PipelineConfig,
             buckets.setdefault(key, []).append(i)
     pending: list[tuple[list[int], tuple, object]] = []
     for key, idxs in sorted(buckets.items()):
-        G = _batch_size(key, cfg, 1)
+        G = _batch_size(key, cfg, n_devices)
         c0 = 0
         while c0 < len(idxs):
             chunk = idxs[c0 : c0 + G]
             c0 += G
-            res = _dispatch_one(tiles, chunk, key, G, cfg, device)
+            res = _dispatch_one(tiles, chunk, key, G, cfg, device, mesh)
             pending.append((chunk, key, res))
     return pending
 
 
 def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
-                 device=None, stats: dict | None = None) -> list:
+                 device=None, stats: dict | None = None, mesh=None) -> list:
     """Fully-pipelined region execution: tile builds (pool), device chunk
     dispatches (as soon as a bucket fills), result decodes and per-region
     finishes (pool) all overlap.
@@ -404,7 +397,7 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
     import concurrent.futures as cf
     import time as _time
 
-    device = resolve_device(device)
+    device, n_devices = _device_of(device, mesh)
     st = stats if stats is not None else {}
     for k in ("tile_build_s", "device_wait_s", "finish_s", "device_busy_s",
               "h2d_bytes", "d2h_bytes"):
@@ -436,13 +429,13 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
     def flush(key, force: bool):
         # tails pad to the full batch shape (ONE compiled shape per
         # bucket: the extra G_small shapes doubled cold-start cache loads)
-        G = _batch_size(key, cfg, 1)
+        G = _batch_size(key, cfg, n_devices)
         idxs = buckets.get(key, [])
         while idxs and (len(idxs) >= G or force):
             chunk, idxs = idxs[:G], idxs[G:]
             if first_dispatch[0] is None:
                 first_dispatch[0] = _time.perf_counter()
-            res = _dispatch_one(tiles, chunk, key, G, cfg, device)
+            res = _dispatch_one(tiles, chunk, key, G, cfg, device, mesh)
             st["n_chunks"] += 1
             st["h2d_bytes"] += _h2d_bytes(key, G)
             pending.append((chunk, key, res))
@@ -527,10 +520,11 @@ def decode_chunk(tiles: list[RegionTile], chunk: list[int], key: tuple,
 
 
 def run_device_step(tiles: list[RegionTile], cfg: PipelineConfig,
-                    device=None) -> dict[int, tuple]:
+                    device=None, mesh=None) -> dict[int, tuple]:
     """Blocking convenience wrapper: dispatch + decode every chunk."""
     out: dict[int, tuple] = {}
-    for chunk, key, res in dispatch_device_chunks(tiles, cfg, device=device):
+    for chunk, key, res in dispatch_device_chunks(tiles, cfg, device=device,
+                                                  mesh=mesh):
         out.update(decode_chunk(tiles, chunk, key, res, cfg))
     return out
 

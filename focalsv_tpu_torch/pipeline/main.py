@@ -128,11 +128,15 @@ def _write_device_stats(out_dir: str | None, stats: dict, batcher) -> None:
 
 
 def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
-                        num_workers, failures, timer):
+                        num_workers, failures, timer, mesh=None):
     """Device-batched region execution: tile -> bucketed device dispatch ->
     host finish (with gap DPs batched onto the device).  See
     pipeline/device_exec.py for the parity contract.  A device failure
-    raises: there is no host rerun of the chromosome."""
+    raises: there is no host rerun of the chromosome.
+
+    With more than one card present the chunks are split over a mesh of all
+    of them (``mesh``: the caller's own, e.g. logical shards of one card);
+    the DP batcher stays on the first device."""
     import contextlib
 
     from concurrent.futures import ThreadPoolExecutor
@@ -170,7 +174,15 @@ def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
             _write_region_artifacts(rdir, rres, chrom, chrom_len)
         return rres
 
-    device = resolve_device()
+    if mesh is not None:
+        device = mesh.devices[0]
+    else:
+        device = resolve_device()
+        if device.type == "cuda":
+            import torch
+            if torch.cuda.device_count() > 1:
+                from focalsv_tpu_torch.parallel.mesh import make_mesh
+                mesh = make_mesh()
     batch_ctx = contextlib.nullcontext()
     if _dp_batching_enabled(cfg, device):
         from focalsv_tpu_torch.parallel.batch_executor import dp_batching
@@ -182,7 +194,7 @@ def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
     with timer.stage("regions_streamed"), batch_ctx as batcher, \
             ThreadPoolExecutor(max_workers=max(num_workers, 1)) as ex:
         results = dx.streamed_map(ex, tile_jobs, cfg, finish, device=device,
-                                  stats=stats)
+                                  stats=stats, mesh=mesh)
     _write_device_stats(out_dir, stats, batcher)
     return results
 
@@ -196,6 +208,7 @@ def process_chromosome(
     out_dir: str | None = None,
     refine: bool = True,
     num_workers: int = 4,
+    mesh=None,
 ) -> ChromosomeResult:
     """All regions of one chromosome -> refined chromosome VCF records.
 
@@ -206,6 +219,9 @@ def process_chromosome(
       the engine of the hot path.
     - "host": per-region numpy on a thread pool (the reference's
       joblib.Parallel analog; also the fallback inside device mode).
+
+    ``mesh`` (device mode): the parallel/mesh.py mesh the region chunks are
+    split over; by default all the cards present.
     """
     from focalsv_tpu_torch.utils.profiling import StageTimer
     timer = StageTimer()
@@ -244,7 +260,7 @@ def process_chromosome(
     if cfg.execution.mode == "device":
         results = _run_regions_device(bam, fasta, chrom, regions, cfg,
                                       out_dir, chrom_len, num_workers,
-                                      failures, timer)
+                                      failures, timer, mesh=mesh)
     elif num_workers > 1 and len(regions) > 1:
         from concurrent.futures import ThreadPoolExecutor
         with timer.stage("regions_host"), \
@@ -337,10 +353,15 @@ def run_target_mode(
     resume: bool = False,
     chrom_filter: str | None = None,
     num_workers: int = 4,
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> str:
     """Target-mode entry (reference focalsv.py --target_bed | -S/-E).
-    Returns the final VCF path.  (Multi-host sharding of the region list
-    is not ported yet.)
+
+    With process_count > 1, each host takes its span-balanced shard of the
+    region list (parallel/distributed.py; the SLURM-per-chromosome analog),
+    writes a per-host VCF, and host 0 merges.  Returns the final VCF path
+    (per-host path on non-zero hosts).
     """
     os.makedirs(out_dir, exist_ok=True)
     bam = bamio.ensure_indexed(bam_path)
@@ -355,6 +376,13 @@ def run_target_mode(
         assert chrom is not None and start is not None and end is not None
         regions = [Region(chrom, int(start), int(end))]
     work_dir = out_dir
+    if process_count > 1:
+        from focalsv_tpu_torch.parallel import distributed as dist
+        regions = dist.shard_regions(regions, process_index, process_count)
+        # host-scoped work dir: chromosomes can straddle shard boundaries,
+        # so per-chromosome outputs must not share paths across hosts
+        work_dir = os.path.join(out_dir, f"host{process_index}_work")
+        os.makedirs(work_dir, exist_ok=True)
     by_chrom = split_by_chrom(regions)
     chrom_vcfs = []
     for c, regs in sorted(by_chrom.items()):
@@ -373,6 +401,40 @@ def run_target_mode(
         write_vcf(vcf_path, cres.records,
                   contigs={c: fasta.lengths()[c]} if c in fasta.seqs else None)
         chrom_vcfs.append(vcf_path)
+    if process_count > 1:
+        from focalsv_tpu_torch.parallel import distributed as dist
+        host_vcf = dist.host_vcf_path(out_dir, process_index)
+        tmp = host_vcf + ".tmp"
+        merge_vcfs(chrom_vcfs, tmp, contigs=fasta.lengths())
+        os.replace(tmp, host_vcf)   # atomic: the merge barrier keys on this
+        final_path = os.path.join(out_dir, "FocalSV_Final_SV.vcf")
+        if dist.world_size() == process_count:
+            # true torch.distributed run: gather every host's records over
+            # the process group (NCCL between cards, gloo between CPUs)
+            # instead of the filesystem, then dedup ONCE at the gather
+            # point -- SVs straddling a shard boundary collapse here
+            # (parallel/gather.py).  A collective that fails raises.
+            from focalsv_tpu_torch.io.vcf import read_vcf, sort_records
+            from focalsv_tpu_torch.parallel.gather import allgather_records
+            _, host_records = read_vcf(host_vcf)
+            global_records = allgather_records(host_records)
+            if process_index != 0:
+                return host_vcf
+            global_records, _ = dedup_records(sort_records(global_records),
+                                              cfg.dedup)
+            write_vcf(final_path, sort_records(global_records),
+                      contigs=fasta.lengths())
+            logger.info("final VCF (collective gather): %s", final_path)
+            return final_path
+        if process_index != 0:
+            return host_vcf
+        # no process group of this size (one job per host on a shared file
+        # system): host-0 file merge with the same cross-shard dedup at the
+        # merge point
+        final = dist.merge_host_vcfs(out_dir, process_count,
+                                     dedup_cfg=cfg.dedup)
+        logger.info("final VCF: %s", final)
+        return final
     final = os.path.join(out_dir, "FocalSV_Final_SV.vcf")
     merge_vcfs(chrom_vcfs, final, contigs=fasta.lengths())
     logger.info("final VCF: %s", final)

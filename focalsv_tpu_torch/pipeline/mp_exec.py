@@ -192,12 +192,13 @@ class MpRegionExecutor:
     """Parent-side coordinator.  Persistent across passes (children stay
     warm); the device dispatch path is identical to streamed_map's."""
 
-    def __init__(self, cfg, n_children: int = 2, device=None):
+    def __init__(self, cfg, n_children: int = 2, device=None, mesh=None):
         import pickle
 
-        from focalsv_tpu_torch.device import resolve_device
+        from focalsv_tpu_torch.pipeline.device_exec import _device_of
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device, self.n_devices = _device_of(device, mesh)
         ctx = mp.get_context("spawn")
         self.req_q = ctx.Queue()
         self.cmd_qs = [ctx.Queue() for _ in range(n_children)]
@@ -218,8 +219,8 @@ class MpRegionExecutor:
         ``jobs[i]`` = (bam_path, ref_path, chrom); results ordered by job
         index.  ``collect="records"`` ships full RegionResults back."""
         from focalsv_tpu_torch.pipeline import device_exec as dx
-        cfg, device = self.cfg, self.device
-        n_devices = 1
+        cfg, device, mesh = self.cfg, self.device, self.mesh
+        n_devices = self.n_devices
         st = stats if stats is not None else {}
         for k in ("device_busy_s", "h2d_bytes", "d2h_bytes", "tile_build_s",
                   "finish_s"):
@@ -254,7 +255,7 @@ class MpRegionExecutor:
                 if first_dispatch[0] is None:
                     first_dispatch[0] = time.perf_counter()
                 buf = dx.pack_chunk(stubs, list(range(len(stubs))), key, G)
-                res = dx.dispatch_packed(buf, key, G, cfg, device)
+                res = dx.dispatch_packed(buf, key, G, cfg, device, mesh)
                 st["n_chunks"] += 1
                 st["h2d_bytes"] += buf.size
                 pending.append((idxs, key, G, res))

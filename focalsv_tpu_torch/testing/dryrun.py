@@ -1,4 +1,13 @@
-"""Driver entry points: single-chip compile check + multi-chip dry run."""
+"""Entry points of a dry run: a single-device step, and the multi-device
+path end to end on a mesh.
+
+    FOCALSV_TORCH_DEVICE=cpu python -c "from focalsv_tpu_torch.testing \
+        import dryrun; dryrun.dryrun_multichip(2)"
+
+Without the variable the mesh is made of the cards present; ``devices``
+names the shards' devices outright (two logical shards of one card:
+``devices=["cuda:0", "cuda:0"]``).
+"""
 
 import functools
 
@@ -6,9 +15,12 @@ import numpy as np
 
 
 def entry():
-    """(fn, example_args): jittable forward step of the flagship compute --
-    the batched banded affine alignment kernel over a region tile batch."""
-    from focalsv_tpu_torch.ops.align import banded_align_batch
+    """(fn, example_args): forward step of the flagship compute -- the
+    batched banded affine alignment over a region tile batch, kernel B1 on
+    a card and its plain version on the CPU.  The example arguments are
+    tensors on the port's device (device.resolve_device)."""
+    from focalsv_tpu_torch.device import resolve_device
+    from focalsv_tpu_torch.ops.align import banded_align, to_device
 
     B, LQ, LT, BAND = 8, 1024, 1024, 128
     rng = np.random.default_rng(0)
@@ -19,37 +31,33 @@ def entry():
     t_len = np.full(B, LT, np.int32)
     d_lo = ((t_len - q_len) // 2 - BAND // 2).astype(np.int32)
 
-    fn = functools.partial(banded_align_batch, band=BAND, store_dirs=True)
-    return fn, (q, q_len, t, t_len, d_lo)
+    fn = functools.partial(banded_align, band=BAND, store_dirs=True)
+    return fn, tuple(to_device(resolve_device(), q, q_len, t, t_len, d_lo))
 
 
-def dryrun_multichip(n_devices: int) -> None:
-    """Compile + execute the full sharded region step on an n-device mesh:
-    region-batch data parallelism (the framework's DP axis) across (1) the
-    PRODUCTION chromosome driver (process_chromosome in device mode -- tile
-    build -> sharded compact-row phasing/consensus kernel -> host finish ->
-    FP filter/dedup/refine), (2) the packed row kernel vs the unpacked
-    reference kernel bit-for-bit, and (3) banded alignment DP with an
-    all_gather collective for the cross-region candidate table."""
+def dryrun_multichip(n_devices: int, devices=None) -> None:
+    """Execute the full sharded region step on an n-shard mesh:
+    region-batch data parallelism across (1) the PRODUCTION chromosome
+    driver (process_chromosome in device mode -- tile build -> sharded
+    region step -> host finish -> FP filter/dedup/refine), (2) the packed
+    row entry vs the unpacked dense entry bit-for-bit, and (3) banded
+    alignment DP with the gathered cross-region candidate table."""
     import os
     import tempfile
-
-    import jax
+    import time
 
     from focalsv_tpu_torch.parallel import mesh as pmesh
     from focalsv_tpu_torch.parallel.region_step import (
-        flat_layout, pack_row_tile, sharded_phase_consensus,
+        BLOCK, flat_layout, pack_row_tile, sharded_phase_consensus,
         sharded_phase_consensus_rows_packed, unflatten_result)
-    from focalsv_tpu_torch.pipeline.device_exec import _ensure_compile_cache
-    _ensure_compile_cache()
 
-    mesh = pmesh.make_mesh(n_devices)
+    mesh = pmesh.make_mesh(n_devices, devices=devices)
     rng = np.random.default_rng(0)
 
     # stage 1: the PRODUCTION chromosome step on the mesh.  process_chromosome
-    # in device mode builds compact-row tiles, dispatches the sharded kernel
-    # over the mesh's regions axis, and finishes on host -- the same code
-    # path `focalsv-tpu` runs on a pod slice.
+    # in device mode builds the tiles, dispatches the sharded region step
+    # over the mesh, and finishes on host -- the code path the CLI runs on
+    # a machine with several cards.
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.io import bam as bamio
     from focalsv_tpu_torch.io.bed import Region
@@ -68,17 +76,16 @@ def dryrun_multichip(n_devices: int) -> None:
         bam = bamio.ensure_indexed(bam_path)
         fasta = FastaFile.load(ref_path)
         cfg = preset("HIFI")
-        regions = [Region("chr21", 0, 8_192)] * n_devices  # fills the mesh
+        regions = [Region("chr21", 0, 8_192)] * mesh.size  # fills the mesh
         cres = process_chromosome(bam, fasta, "chr21", regions, cfg,
-                                  num_workers=2)
-        assert any(r.svtype == "DEL" for r in cres.records), \
-            "production mesh run produced no DEL call"
+                                  num_workers=2, mesh=mesh)
+        if not any(r.svtype == "DEL" for r in cres.records):
+            raise AssertionError("production mesh run produced no DEL call")
 
-    # stage 2: packed row kernel vs the unpacked reference kernel
+    # stage 2: packed row entry vs the unpacked dense entry
     # (row starts are BLOCK-quantized: pack at start % BLOCK, ship start //
     # BLOCK -- the production build_tile layout)
-    from focalsv_tpu_torch.parallel.region_step import BLOCK
-    G, R, L, W = n_devices * 2, 8, 256, 128
+    G, R, L, W = mesh.size * 2, 8, 256, 128
     Wp = 2 * BLOCK   # row span + max in-block offset, BLOCK-multiple
     mat = np.full((G, R, L), 255, np.uint8)
     qstarts = np.zeros((G, R), np.int32)
@@ -97,38 +104,31 @@ def dryrun_multichip(n_devices: int) -> None:
         rows_packed[g] = pack_row_tile(rows, Wp, offsets=offs)
     valid = np.ones((G, R), bool)
     out = sharded_phase_consensus(mat, valid, mesh, max_sites=8, mec_iters=4)
-    jax.block_until_ready(out)
-    # per-device dispatch timing of the warmed sharded step (SCALING_r05
-    # companion: structure check that repeat dispatches hit the compiled
-    # executable -- a retrace would show as a ~100x outlier here)
-    import time as _time
+    # wall time of the sharded call, copies to and from the host included
+    # (three passes after the first: no pass should stand out)
     walls = []
     for _ in range(3):
-        t0 = _time.perf_counter()
-        jax.block_until_ready(sharded_phase_consensus(
-            mat, valid, mesh, max_sites=8, mec_iters=4))
-        walls.append(_time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sharded_phase_consensus(mat, valid, mesh, max_sites=8, mec_iters=4)
+        walls.append(time.perf_counter() - t0)
     w = sorted(walls)[1]
     print(f"# dryrun sharded dispatch: {w * 1e3:.1f} ms for {G} regions on "
-          f"{n_devices} devices ({w * 1e3 * n_devices / G:.1f} "
-          f"device-ms/region), passes {[round(x * 1e3, 1) for x in walls]}")
-    site_pos, n_sites, A, hp, sym, cov = out
-    assert np.asarray(hp).shape == (G, R)
-    assert np.asarray(sym).shape == (G, 2, L)
-    buf = sharded_phase_consensus_rows_packed(
+          f"{mesh!r} (host clock), passes "
+          f"{[round(x * 1e3, 1) for x in walls]}")
+    site_pos, n_sites, A, hp, sym, cov = (x.numpy() for x in out)
+    assert hp.shape == (G, R) and sym.shape == (G, 2, L)
+    bufs = sharded_phase_consensus_rows_packed(
         rows_packed, qstarts, valid, mesh, L=L, W=Wp, max_sites=8,
-        mec_iters=4)
-    jax.block_until_ready(buf)
-    bufs = np.asarray(buf)
+        mec_iters=4).numpy()
     assert bufs.shape == (G, flat_layout(R, L, 8)["__total__"][1])
-    # packed-row and unpacked dense kernels agree bit-for-bit
+    # packed-row and unpacked dense entries agree bit-for-bit
     for g in range(G):
         sp, ns, hp2, sym2, cov2, *_site = unflatten_result(bufs[g], R, L, 8)
-        np.testing.assert_array_equal(hp2, np.asarray(hp[g]))
-        np.testing.assert_array_equal(sym2, np.asarray(sym[g]))
-        np.testing.assert_array_equal(cov2, np.asarray(cov[g]))
-    # stage 3: sharded banded DP + candidate all_gather
-    B, LQ, LT = n_devices * 2, 256, 256
+        np.testing.assert_array_equal(hp2, hp[g])
+        np.testing.assert_array_equal(sym2, sym[g])
+        np.testing.assert_array_equal(cov2, cov[g])
+    # stage 3: sharded banded DP + the gathered candidate table
+    B, LQ, LT = mesh.size * 2, 256, 256
     t = rng.integers(0, 4, (B, LT)).astype(np.uint8)
     q = t.copy()
     q[:, 64:70] = (q[:, 64:70] + 1) % 4
@@ -137,5 +137,7 @@ def dryrun_multichip(n_devices: int) -> None:
     d_lo = ((t_len - q_len) // 2 - 64).astype(np.int32)
     scores, cand, global_cand = pmesh.sharded_sv_candidate_step(
         q, q_len, t, t_len, d_lo, mesh=mesh)
-    jax.block_until_ready((scores, cand, global_cand))
-    assert np.asarray(global_cand).shape[0] == B
+    assert len(global_cand) == mesh.size
+    for copy in global_cand:
+        assert copy.shape == (B, 3) and bool((copy.cpu() == cand.cpu()).all())
+    assert bool((cand[:, 0] == scores).all())
