@@ -47,7 +47,24 @@ on the card in phases, and exits non-zero at the first phase that fails:
    realignment shape (4,000 windows of 29 bases) within 1e-3, and one
    host-mode region with use_pairhmm=True on the card against the CPU;
 10. evaluation.cli bench of phase 6's device VCF against the simulation's
-   truth; prints F1.
+   truth; prints F1;
+11. the multi-device and multi-process path on a mesh of every card present
+   (two logical shards of the one card when there is one): the sharded
+   delta and rows region steps on every chunk of phase 4 against the
+   unsharded step, byte for byte; sharded_banded_align and
+   sharded_sv_candidate_step (B1 once per shard) against the unsharded B1
+   and the plain version; run_target_mode through the mesh on phase 6's 32
+   guided regions, equal to phase 6's device VCF; dryrun_multichip; two
+   dist_worker ranks on phase 6's BED through the collective gather (NCCL
+   with a card each when there are two cards, else gloo with both ranks on
+   the one card) against the file merge of two in-process hosts; and NCCL
+   at world size 1 (initialize, an all_gather of phase 6's record payload,
+   shutdown).
+
+Phase 4 also prints the region step's card time by kernel name for one
+delta and one rows chunk (torch.profiler).  With --multi-device-only the
+script runs phases 1, 2 and 11 alone (phase 6's guided device run
+included), for a machine with several cards.
 
 The last two lines are the kernels' JSON record and the result line.  A
 kernel's bound_ms is the larger of its bytes (each input read once, each
@@ -348,23 +365,21 @@ def _simulate(n, dtype="HIFI", seed0=1000):
     return out
 
 
-def region_step_parity(hifi_regions, n_clr):
-    """The port's region step on the card vs on the CPU, byte for byte, at
-    production chunk sizes; returns ms per chunk on the card by bucket."""
+def region_tiles(hifi_regions, n_clr):
+    """[(config, tiles)]: HiFi tiles of the given regions and n_clr noisy CLR
+    tiles made dense (the dense entry must run)."""
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.parallel.wire import BLOCK, pack_row_tile
     from focalsv_tpu_torch.assembly.consensus import compact_pileup_rows
     from focalsv_tpu_torch.pipeline import device_exec as dx
-    jobs = []
     cfg = preset("HIFI")
     tiles = [dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, cfg)
              for rg in hifi_regions]
-    jobs.append((cfg, tiles))
     ccfg = preset("CLR")
     ctiles = [dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, ccfg)
               for rg in _simulate(n_clr, "CLR", seed0=2000)]
     for t in ctiles:
-        if t.encoding != "dense":          # the dense entry must run
+        if t.encoding != "dense":
             rows, starts, _ = compact_pileup_rows(
                 t.usable, list(range(len(t.usable))), 0, t.region_len)
             t.row_starts = starts.astype(np.int32)
@@ -374,35 +389,81 @@ def region_step_parity(hifi_regions, n_clr):
             t.nib = pack_row_tile(rows, t.W_pad, offsets=offs)
             t.q_starts = (t.row_starts // BLOCK).astype(np.int32)
             t.encoding = "dense"
-    jobs.append((ccfg, ctiles))
-    times = {}
-    cuda = DEVICE
+    return [(cfg, tiles), (ccfg, ctiles)]
+
+
+def region_chunks(jobs, n_devices):
+    """One packed chunk per bucket of each job, at the production batch size
+    for n_devices: (config, bucket key, G, count of real regions, buffer)."""
+    from focalsv_tpu_torch.pipeline import device_exec as dx
     for cfg, tiles in jobs:
         buckets: dict = {}
         for i, t in enumerate(tiles):
             buckets.setdefault(dx._bucket_key(t, cfg), []).append(i)
         for key, idxs in sorted(buckets.items()):
-            G = dx._batch_size(key, cfg, 1)
-            padded = tiles + [None]
+            G = dx._batch_size(key, cfg, n_devices)
             chunk = idxs + [len(tiles)] * (G - len(idxs))
-            buf = dx.pack_chunk(padded, chunk, key, G)
-            dev_res = dx.dispatch_packed(buf, key, G, cfg, cuda)
-            got = np.asarray(dev_res)
-            ms = time_ms(lambda: dx.dispatch_packed(buf, key, G, cfg, cuda)
-                         .host, 2)
-            t0 = time.perf_counter()
-            want = np.asarray(dx.dispatch_packed(buf, key, G, cfg,
-                                                 torch.device("cpu")))
-            cpu_s = time.perf_counter() - t0
-            same = got.shape == want.shape and np.array_equal(got, want)
-            log(f"[region_step] {key} G={G} real={len(idxs)} "
-                f"card_ms_per_chunk={ms:.1f} cpu_s={cpu_s:.2f} "
-                f"bytes_equal={same}")
-            if not same:
-                raise AssertionError(f"region step on the card differs from "
-                                     f"the CPU for bucket {key}")
-            times[str(key)] = ms
+            yield cfg, key, G, len(idxs), dx.pack_chunk(tiles + [None], chunk,
+                                                        key, G)
+
+
+def region_step_parity(jobs):
+    """The port's region step on the card vs on the CPU, byte for byte, at
+    production chunk sizes; returns ms per chunk on the card by bucket."""
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    times = {}
+    cuda = DEVICE
+    profiled = set()
+    for cfg, key, G, n_real, buf in region_chunks(jobs, 1):
+        dev_res = dx.dispatch_packed(buf, key, G, cfg, cuda)
+        got = np.asarray(dev_res)
+        ms = time_ms(lambda: dx.dispatch_packed(buf, key, G, cfg, cuda)
+                     .host, 2)
+        t0 = time.perf_counter()
+        want = np.asarray(dx.dispatch_packed(buf, key, G, cfg,
+                                             torch.device("cpu")))
+        cpu_s = time.perf_counter() - t0
+        same = got.shape == want.shape and np.array_equal(got, want)
+        log(f"[region_step] {key} G={G} real={n_real} "
+            f"card_ms_per_chunk={ms:.1f} cpu_s={cpu_s:.2f} "
+            f"bytes_equal={same}")
+        if not same:
+            raise AssertionError(f"region step on the card differs from "
+                                 f"the CPU for bucket {key}")
+        times[str(key)] = ms
+        if key[0] not in profiled:           # one delta and one rows chunk
+            profiled.add(key[0])
+            profile_chunk(buf, key, G, cfg)
     return times
+
+
+def profile_chunk(buf, key, G, cfg, top: int = 10) -> None:
+    """Print one chunk's card time by kernel name (torch.profiler): the top
+    kernels by their summed time, and how many launches the chunk takes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        np.asarray(dx.dispatch_packed(buf, key, G, cfg, DEVICE))
+        sync()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    total_us = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    if not rows:
+        log(f"[profile] {key}: torch.profiler recorded no device time here")
+        return
+    log(f"[profile] {key} G={G}: {launches} kernel launches and copies, "
+        f"{total_us / 1e3:.2f} ms of card time; top {top} by name:")
+    for us, count, name in rows[:top]:
+        log(f"[profile]   {us / 1e3:8.3f} ms {100 * us / total_us:5.1f} % "
+            f"x{count:<5d} {name[:110]}")
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -455,7 +516,7 @@ def write_chromosome(regions, work: str):
     return bam_path, fa_path, beds
 
 
-def run_mode(bam, fa, bed, out, method, mode, n):
+def run_mode(bam, fa, bed, out, method, mode, n, mesh=None):
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.pipeline import main
     cfg = preset("HIFI")
@@ -464,7 +525,7 @@ def run_mode(bam, fa, bed, out, method, mode, n):
         execution=dataclasses.replace(cfg.execution, mode=mode))
     t0 = time.perf_counter()
     final = main.run_target_mode(bam, fa, out, cfg, target_bed=bed,
-                                 num_workers=8)
+                                 num_workers=8, mesh=mesh)
     secs = time.perf_counter() - t0
     with open(final) as f:
         vcf = f.read()
@@ -481,7 +542,8 @@ def run_mode(bam, fa, bed, out, method, mode, n):
             "tile_build_s", "device_wait_s", "finish_s", "device_busy_s")})
     log(f"[slice] {method} {mode} stage seconds: {json.dumps(stages)}")
     n_rec = sum(1 for line in vcf.splitlines() if not line.startswith("#"))
-    log(f"[slice] {method} {mode}: {n} regions in {secs:.2f} s = "
+    log(f"[slice] {method} {mode}{f' on {mesh!r}' if mesh else ''}: "
+        f"{n} regions in {secs:.2f} s = "
         f"{n / secs:.3f} regions/s, {n_rec} records"
         + (f", n_chunks={stats['n_chunks']} "
            f"n_host_fallback={stats['n_host_fallback']} "
@@ -494,9 +556,10 @@ def run_mode(bam, fa, bed, out, method, mode, n):
     return vcf, stats, n_rec
 
 
-def slice_run(regions, work: str):
+def slice_run(regions, work: str, guided_only: bool = False):
     """Device runs (the main path, with the launch counts) then host runs;
-    each device VCF must equal its host VCF."""
+    each device VCF must equal its host VCF.  ``guided_only``: the guided
+    device run alone (what phase 11 compares with)."""
     from focalsv_tpu_torch.ops import align_cuda
     bam, fa, beds = write_chromosome(regions, work)
     n_all, n_olc = len(regions), N_OLC_REGIONS
@@ -506,6 +569,12 @@ def slice_run(regions, work: str):
                                      f"{work}/guided_device", "guided",
                                      "device", n_all)
     launches_guided = align_cuda.launches
+    inputs = dict(fasta=fa, bam=bam, bed=beds[n_all],
+                  guided_vcf=f"{work}/guided_device/FocalSV_Final_SV.vcf",
+                  guided_rps=n_all / g_stats["wall_s"])
+    if guided_only:
+        del os.environ["FOCALSV_DP_RT_MS"]
+        return dict(inputs, b1=launches_guided, b4=0)
     o_dev, o_stats, o_rec = run_mode(bam, fa, beds[n_olc],
                                      f"{work}/olc_device", "olc", "device",
                                      n_olc)
@@ -539,10 +608,8 @@ def slice_run(regions, work: str):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"slice checks failed: {failed}")
-    return dict(b1=launches, b4=tb_launches, fasta=fa,
-                guided_vcf=f"{work}/guided_device/FocalSV_Final_SV.vcf",
-                olc_out=f"{work}/olc_device",
-                guided_rps=n_all / g_stats["wall_s"])
+    return dict(inputs, b1=launches, b4=tb_launches,
+                olc_out=f"{work}/olc_device")
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -793,6 +860,288 @@ def evaluation_phase(regions, work: str, call_vcf: str) -> None:
         raise AssertionError(f"evaluation phase failed: {res}")
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+RANK_TIMEOUT_S = 420
+
+
+def smoke_mesh():
+    """A mesh of every card present; two logical shards of the one card
+    when there is one."""
+    from focalsv_tpu_torch.parallel.mesh import make_mesh
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        mesh = make_mesh()
+        log(f"[mesh] {mesh!r}: one shard on each of the {cards} cards")
+    else:
+        mesh = make_mesh(devices=[torch.device("cuda", 0)] * 2)
+        log(f"[mesh] {mesh!r}: this machine has one card, so the mesh is two "
+            "logical shards of it, each with a stream of its own")
+    return mesh
+
+
+def time_pending_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() -> PendingResult by CUDA events on the
+    current stream, which waits for the result's own events (a sharded
+    result's copies run on the shards' streams)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    stream = torch.cuda.current_stream()
+    start.record()
+    for _ in range(reps):
+        for e in fn().events:
+            stream.wait_event(e)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def sharded_region_steps(jobs, mesh) -> None:
+    """Every chunk of phase 4 at the mesh's batch size: the sharded step
+    against the unsharded one, byte for byte."""
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    for cfg, key, G, n_real, buf in region_chunks(jobs, mesh.size):
+        def one():
+            return dx.dispatch_packed(buf, key, G, cfg, DEVICE)
+
+        def sharded():
+            return dx.dispatch_packed(buf, key, G, cfg, None, mesh)
+
+        want = np.asarray(one())
+        got = np.asarray(sharded())
+        same = got.shape == want.shape and np.array_equal(got, want)
+        ms_one = time_pending_ms(one, 2)
+        ms_sharded = time_pending_ms(sharded, 2)
+        again = np.array_equal(np.asarray(sharded()), want)
+        log(f"[mesh] region step {key} G={G} real={n_real} over "
+            f"{mesh.size} shards: bytes_equal={same and again} "
+            f"sharded_ms_per_chunk={ms_sharded:.1f} "
+            f"unsharded_ms_per_chunk={ms_one:.1f}")
+        if not (same and again):
+            raise AssertionError(f"the sharded region step differs from the "
+                                 f"unsharded one for bucket {key}")
+
+
+def sharded_dp(rng, mesh) -> int:
+    """sharded_banded_align at the OLC-polish shape and
+    sharded_sv_candidate_step against the unsharded B1 and the plain
+    version; returns B1's launches on the sharded path (one per shard and
+    call)."""
+    from focalsv_tpu_torch.ops import align as talign
+    from focalsv_tpu_torch.ops import align_cuda
+    from focalsv_tpu_torch.parallel import mesh as pmesh
+    from focalsv_tpu_torch.testing import dryrun
+    from focalsv_tpu_torch.testing.dp_cases import dp_pairs
+    B = 4 * mesh.size
+    polish = dp_pairs(rng, B, 16384, 512, 12000, leading_ins=False, edge=True)
+    fill = dp_pairs(rng, B, 1024, 128, 300, leading_ins=False, edge=True)
+    # the path: counts at 0, the sharded calls and the dry run, counts read
+    align_cuda.reset_launches()
+    t0 = time.perf_counter()
+    s_sh, d_sh = pmesh.sharded_banded_align(*polish, mesh=mesh, band=512,
+                                            **OLC_SCORING)
+    sync()
+    sharded_s = time.perf_counter() - t0
+    scores, cand, global_cand = pmesh.sharded_sv_candidate_step(*fill,
+                                                                mesh=mesh)
+    sync()
+    launches_dp = align_cuda.launches
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(mesh.size, devices=list(mesh.devices))
+    log(f"[mesh] dryrun_multichip on {mesh!r}: passed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches = align_cuda.launches
+    tb = align_cuda.traceback_launches
+    # the comparisons (their launches are not the path's)
+    args = [torch.from_numpy(a).to(DEVICE) for a in polish]
+    s_k, d_k = align_cuda.banded_align_batch_cuda(*args, band=512,
+                                                  **OLC_SCORING)
+    s_p, d_p = talign.banded_align_batch(*args, band=512, **OLC_SCORING)
+    sync()
+    dev0 = mesh.devices[0]
+    err_k = max(int((s_sh.to(dev0).long() - s_k.to(dev0).long()).abs().max()),
+                int((d_sh.to(dev0).int() - d_k.to(dev0).int()).abs().max()))
+    err_p = max(int((s_sh.to(dev0).long() - s_p.to(dev0).long()).abs().max()),
+                int((d_sh.to(dev0).int() - d_p.to(dev0).int()).abs().max()))
+    del d_sh, d_k, d_p
+    fargs = [torch.from_numpy(a).to(DEVICE) for a in fill]
+    fs_p, fd_p = talign.banded_align_batch(*fargs, band=128)
+    hdir = fd_p & talign.DIR_H_MASK
+    want = torch.stack([fs_p, (hdir == 1).sum(dim=(1, 2), dtype=torch.int32),
+                        (hdir == 2).sum(dim=(1, 2), dtype=torch.int32)], 1)
+    cand_same = (torch.equal(cand.to(dev0), want.to(dev0))
+                 and torch.equal(scores.to(dev0), fs_p.to(dev0))
+                 and len(global_cand) == mesh.size
+                 and all(torch.equal(c.to(dev0), want.to(dev0))
+                         and c.device == d
+                         for c, d in zip(global_cand, mesh.devices)))
+    log(f"[mesh] sharded_banded_align B={B} Lq=16384 W=512 dirs=True over "
+        f"{mesh.size} shards: max_abs_err vs unsharded B1 {err_k}, vs the "
+        f"plain version {err_p}; {sharded_s * 1e3:.1f} ms by the host clock, "
+        f"copies from the host included")
+    log(f"[mesh] sharded_sv_candidate_step B={B} Lq=1024 W=128: scores, D/I "
+        f"counts and every shard's copy of the table equal the plain "
+        f"version's: {cand_same}")
+    log(f"[mesh] launches on the sharded DP path: B1 {launches} "
+        f"({launches_dp} by the two sharded calls = 2 x {mesh.size} shards, "
+        f"{launches - launches_dp} by the dry run), B4 {tb}")
+    if err_k or err_p or not cand_same or launches_dp != 2 * mesh.size:
+        raise AssertionError("the sharded DP differs from the unsharded one "
+                             "or did not launch B1 once per shard")
+    return launches
+
+
+def run_ranks(commands, envs) -> tuple[list[str], float]:
+    """One process per command; all must exit 0 within RANK_TIMEOUT_S.  Every
+    one of them is killed when one fails or the limit passes.  Returns
+    their outputs and the wall seconds."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd, env in zip(commands, envs)]
+    outputs = [""] * len(procs)
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        pending = set(range(len(procs)))
+        while pending:
+            for i in sorted(pending):
+                if procs[i].poll() is not None:
+                    outputs[i] = procs[i].communicate()[0]
+                    pending.discard(i)
+                    if procs[i].returncode != 0:
+                        raise AssertionError(f"rank {i} failed:\n"
+                                             f"{outputs[i][-3000:]}")
+            if time.monotonic() > deadline:
+                raise AssertionError("the ranks timed out")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outputs, time.perf_counter() - t0
+
+
+def two_ranks(main_path, work: str) -> None:
+    """Two dist_worker ranks in device mode on phase 6's BED through the
+    collective gather, against the file merge of two in-process hosts."""
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.io.vcf import read_vcf
+    from focalsv_tpu_torch.pipeline import main
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = f"{work}/ranks"
+    cmds, envs = [], []
+    for rank in range(2):
+        cmds.append([sys.executable, "-m",
+                     "focalsv_tpu_torch.testing.dist_worker", "--pid",
+                     str(rank), "--nprocs", "2", "--port", str(port), "--bam",
+                     main_path["bam"], "--ref", main_path["fasta"], "--bed",
+                     main_path["bed"], "--out", out, "--device", "cuda",
+                     "--backend", backend])
+        env = dict(os.environ, PYTHONPATH=ROOT, FOCALSV_MERGE_TIMEOUT_S="120")
+        if cards >= 2:
+            env["CUDA_VISIBLE_DEVICES"] = str(rank)    # a card a rank
+        envs.append(env)
+    outputs, secs = run_ranks(cmds, envs)
+    gathered = next((ln.split("] ", 1)[-1] for ln in outputs[0].splitlines()
+                     if "bytes on the wire" in ln), "")
+    collective = "final VCF (collective gather)" in outputs[0]
+    _, dist_recs = read_vcf(f"{out}/FocalSV_Final_SV.vcf")
+    # the file-merge branch on the same input: two hosts as threads of this
+    # process, no process group
+    os.environ["FOCALSV_MERGE_TIMEOUT_S"] = "120"
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            futs = [ex.submit(main.run_target_mode, main_path["bam"],
+                              main_path["fasta"], f"{work}/hosts",
+                              preset("HIFI"), target_bed=main_path["bed"],
+                              process_index=i, process_count=2)
+                    for i in range(2)]
+            merged = futs[0].result(timeout=RANK_TIMEOUT_S)
+            futs[1].result(timeout=RANK_TIMEOUT_S)
+        merge_s = time.perf_counter() - t0
+    finally:
+        del os.environ["FOCALSV_MERGE_TIMEOUT_S"]
+    _, merge_recs = read_vcf(merged)
+    same = ([r.to_line() for r in dist_recs]
+            == [r.to_line() for r in merge_recs])
+    where = ("a card each" if cards >= 2 else
+             "both on the one card: two NCCL ranks cannot share a card")
+    log(f"[ranks] 2 dist_worker ranks over {backend} ({where}), device "
+        f"mode, {N_REGIONS} regions: {secs:.2f} s wall with their start; "
+        f"rank 0 took the collective branch: {collective}; {gathered}; "
+        f"{len(dist_recs)} records, equal to the file-merge branch's "
+        f"({merge_s:.2f} s, two in-process hosts): {same}")
+    if not (collective and same and dist_recs and gathered):
+        raise AssertionError("the two-rank run failed:\n"
+                             + outputs[0][-2000:])
+
+
+def nccl_single(main_path) -> None:
+    """NCCL on the card at world size 1: join, all_gather phase 6's record
+    payload, leave."""
+    import socket
+
+    from focalsv_tpu_torch.io.vcf import read_vcf
+    from focalsv_tpu_torch.parallel import distributed, gather
+    _, recs = read_vcf(main_path["guided_vcf"])
+    flat, lens = gather.encode_records(recs)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    try:
+        rank_world = distributed.initialize(f"localhost:{port}", 1, 0,
+                                            backend="nccl")
+        import torch.distributed as dist
+        backend = dist.get_backend()
+        g_flat = gather._process_allgather(flat)
+        g_lens = gather._process_allgather(lens)
+    finally:
+        distributed.shutdown()
+    same = (g_flat.shape == (1, flat.size) and np.array_equal(g_flat[0], flat)
+            and np.array_equal(g_lens[0], lens)
+            and [r.to_line() for r in gather.decode_records(g_flat[0],
+                                                            g_lens[0])]
+            == [r.to_line() for r in recs])
+    log(f"[ranks] {backend} at world size 1 on the card: initialize -> "
+        f"{rank_world}, all_gather of {len(recs)} records ({flat.size} "
+        f"bytes) returned them unchanged: {same}; group left: "
+        f"{distributed.world_size() == 1} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if not same or backend != "nccl" or distributed.world_size() != 1:
+        raise AssertionError("the NCCL phase failed")
+
+
+def multi_device(rng, jobs, main_path, work: str) -> int:
+    """Phase 11; returns B1's launches on the sharded DP path."""
+    mesh = smoke_mesh()
+    sharded_region_steps(jobs, mesh)
+    b1 = sharded_dp(rng, mesh)
+    with open(main_path["guided_vcf"]) as f:
+        want = f.read()
+    got, stats, _ = run_mode(main_path["bam"], main_path["fasta"],
+                             main_path["bed"], f"{work}/guided_mesh",
+                             "guided", "device", N_REGIONS, mesh=mesh)
+    log(f"[mesh] run_target_mode through the mesh: VCF equal to phase 6's "
+        f"device VCF byte for byte: {got == want}; "
+        f"{N_REGIONS / stats['wall_s']:.3f} regions/s beside phase 6's "
+        f"{main_path['guided_rps']:.3f} on one device, same run")
+    if got != want or stats["n_chunks"] == 0:
+        raise AssertionError("the mesh run's VCF differs from phase 6's")
+    two_ranks(main_path, work)
+    nccl_single(main_path)
+    return b1
+
+
 def child_pids() -> list[int]:
     """The processes whose parent is this one, zombies left out."""
     me, out = os.getpid(), []
@@ -845,7 +1194,7 @@ def stop_helpers() -> list[int]:
     return left
 
 
-def main() -> int:
+def main(multi_only: bool = False) -> int:
     device_check()
     if not os.path.isdir(os.path.join(ROOT, "focalsv_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository",
@@ -857,45 +1206,60 @@ def main() -> int:
     host_libraries()
     build_kernels()
     rng = np.random.default_rng(0)
-    b1, b4 = kernel_parity(rng, B1_CASES)
-    b4.append(dict(case="crafted_walks", max_abs_err=walk_parity()))
+    if not multi_only:
+        b1, b4 = kernel_parity(rng, B1_CASES)
+        b4.append(dict(case="crafted_walks", max_abs_err=walk_parity()))
     t0 = time.perf_counter()
     regions = _simulate(N_REGIONS)
     log(f"[data] simulated {len(regions)} HiFi regions at {COVERAGE}x in "
         f"{time.perf_counter() - t0:.1f} s")
-    region_step_parity(regions[: 2 * len(SIZE_MIX)], n_clr=2)
+    jobs = region_tiles(regions[: 2 * len(SIZE_MIX)], n_clr=2)
+    if not multi_only:
+        region_step_parity(jobs)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT,
                                                                    "build"))
     try:
-        golden(work)
-        main_path = slice_run(regions, work)
-        mp_executor(regions, work, main_path["guided_rps"])
-        complex_b1, complex_b4 = complex_svs(work, main_path["olc_out"],
-                                             main_path["fasta"])
-        pairhmm_phase(regions[0])
-        evaluation_phase(regions, work, main_path["guided_vcf"])
+        if multi_only:
+            main_path = slice_run(regions, work, guided_only=True)
+            multi_device(rng, jobs, main_path, work)
+        else:
+            golden(work)
+            main_path = slice_run(regions, work)
+            mp_executor(regions, work, main_path["guided_rps"])
+            complex_b1, complex_b4 = complex_svs(work, main_path["olc_out"],
+                                                 main_path["fasta"])
+            pairhmm_phase(regions[0])
+            evaluation_phase(regions, work, main_path["guided_vcf"])
+            mesh_b1 = multi_device(rng, jobs, main_path, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     left = stop_helpers()
     log(f"[exit] processes of this run still running: {left}")
     if left:
         raise AssertionError(f"the run left processes behind: {left}")
+    if multi_only:
+        log("[exit] phases 1, 2 and 11 passed (--multi-device-only: no "
+            "result line)")
+        return 0
     kernels = []
-    for name, source, replaces, rows, n, n_complex in (
+    for name, source, replaces, rows, n, n_complex, n_mesh in (
             ("banded_align (B1)", "focalsv_tpu_torch/csrc/banded_align.cu",
              "focalsv_tpu/ops/align_pallas.py:122", b1, main_path["b1"],
-             complex_b1),
+             complex_b1, mesh_b1),
             ("traceback (B4)", "focalsv_tpu_torch/csrc/traceback.cu",
              "focalsv_tpu/ops/align.py:308", b4, main_path["b4"],
-             complex_b4)):
+             complex_b4, 0)):
         polish = next(r for r in rows if r["case"] == "olc_polish")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n + n_complex,
-            # each path was driven with the counts at 0 just before it
+            "replaces": replaces, "launches": n + n_complex + n_mesh,
+            # each path was driven with the counts at 0 just before it; B4
+            # is not on the sharded DP path (it stores and counts the
+            # direction bytes, and walks none)
             "launches_by_path": {"target_mode_guided_and_olc": n,
-                                 "complex_sv_target": n_complex},
+                                 "complex_sv_target": n_complex,
+                                 "sharded_dp_and_dry_run": n_mesh},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": polish["ms"], "plain_ms": polish["plain_ms"],
             "bound_ms": polish["bound_ms"], "bound_by": polish["bound_by"],
@@ -916,7 +1280,7 @@ if __name__ == "__main__":
         complex_run(sys.argv[2], "cpu", sys.argv[3], sys.argv[4])
         sys.exit(0)
     try:
-        code = main()
+        code = main(multi_only=sys.argv[1:] == ["--multi-device-only"])
     finally:
         stop_helpers()               # on a failed phase too
     sys.exit(code)

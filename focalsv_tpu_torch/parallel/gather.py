@@ -91,6 +91,10 @@ def allgather_records(records: list[VcfRecord]) -> list[VcfRecord]:
     flat_p[: flat.size] = flat
     g_lens = _process_allgather(lens_p)
     g_flat = _process_allgather(flat_p)
+    logger.info("gathered %d records of %d processes: %d bytes on the wire "
+                "in three collectives", int(all_dims[:, 0].sum()),
+                g_lens.shape[0],
+                all_dims.nbytes + g_lens.nbytes + g_flat.nbytes)
     out: list[VcfRecord] = []
     for p in range(g_lens.shape[0]):
         n_p = int(all_dims[p, 0])

@@ -355,13 +355,14 @@ def run_target_mode(
     num_workers: int = 4,
     process_index: int = 0,
     process_count: int = 1,
+    mesh=None,
 ) -> str:
     """Target-mode entry (reference focalsv.py --target_bed | -S/-E).
 
     With process_count > 1, each host takes its span-balanced shard of the
     region list (parallel/distributed.py; the SLURM-per-chromosome analog),
     writes a per-host VCF, and host 0 merges.  Returns the final VCF path
-    (per-host path on non-zero hosts).
+    (per-host path on non-zero hosts).  ``mesh``: see process_chromosome.
     """
     os.makedirs(out_dir, exist_ok=True)
     bam = bamio.ensure_indexed(bam_path)
@@ -397,7 +398,8 @@ def run_target_mode(
             chrom_vcfs.append(vcf_path)
             continue
         cres = process_chromosome(bam, fasta, c, regs, cfg, out_dir=cdir,
-                                  refine=refine, num_workers=num_workers)
+                                  refine=refine, num_workers=num_workers,
+                                  mesh=mesh)
         write_vcf(vcf_path, cres.records,
                   contigs={c: fasta.lengths()[c]} if c in fasta.seqs else None)
         chrom_vcfs.append(vcf_path)

@@ -14,6 +14,11 @@ import functools
 import numpy as np
 
 
+def _check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"dry run failed: {what}")
+
+
 def entry():
     """(fn, example_args): forward step of the flagship compute -- the
     batched banded affine alignment over a region tile batch, kernel B1 on
@@ -79,8 +84,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
         regions = [Region("chr21", 0, 8_192)] * mesh.size  # fills the mesh
         cres = process_chromosome(bam, fasta, "chr21", regions, cfg,
                                   num_workers=2, mesh=mesh)
-        if not any(r.svtype == "DEL" for r in cres.records):
-            raise AssertionError("production mesh run produced no DEL call")
+        _check(any(r.svtype == "DEL" for r in cres.records),
+               "production mesh run produced no DEL call")
 
     # stage 2: packed row entry vs the unpacked dense entry
     # (row starts are BLOCK-quantized: pack at start % BLOCK, ship start //
@@ -116,17 +121,18 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
           f"{mesh!r} (host clock), passes "
           f"{[round(x * 1e3, 1) for x in walls]}")
     site_pos, n_sites, A, hp, sym, cov = (x.numpy() for x in out)
-    assert hp.shape == (G, R) and sym.shape == (G, 2, L)
+    _check(hp.shape == (G, R) and sym.shape == (G, 2, L), "output shapes")
     bufs = sharded_phase_consensus_rows_packed(
         rows_packed, qstarts, valid, mesh, L=L, W=Wp, max_sites=8,
         mec_iters=4).numpy()
-    assert bufs.shape == (G, flat_layout(R, L, 8)["__total__"][1])
+    _check(bufs.shape == (G, flat_layout(R, L, 8)["__total__"][1]),
+           "flat result shape")
     # packed-row and unpacked dense entries agree bit-for-bit
     for g in range(G):
         sp, ns, hp2, sym2, cov2, *_site = unflatten_result(bufs[g], R, L, 8)
-        np.testing.assert_array_equal(hp2, hp[g])
-        np.testing.assert_array_equal(sym2, sym[g])
-        np.testing.assert_array_equal(cov2, cov[g])
+        _check(np.array_equal(hp2, hp[g]) and np.array_equal(sym2, sym[g])
+               and np.array_equal(cov2, cov[g]),
+               f"packed rows against dense tiles, region {g}")
     # stage 3: sharded banded DP + the gathered candidate table
     B, LQ, LT = mesh.size * 2, 256, 256
     t = rng.integers(0, 4, (B, LT)).astype(np.uint8)
@@ -137,7 +143,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     d_lo = ((t_len - q_len) // 2 - 64).astype(np.int32)
     scores, cand, global_cand = pmesh.sharded_sv_candidate_step(
         q, q_len, t, t_len, d_lo, mesh=mesh)
-    assert len(global_cand) == mesh.size
-    for copy in global_cand:
-        assert copy.shape == (B, 3) and bool((copy.cpu() == cand.cpu()).all())
-    assert bool((cand[:, 0] == scores).all())
+    _check(len(global_cand) == mesh.size
+           and all(c.shape == (B, 3) and bool((c.cpu() == cand.cpu()).all())
+                   for c in global_cand), "every shard's candidate table")
+    _check(bool((cand[:, 0] == scores).all()), "candidate scores")
