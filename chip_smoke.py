@@ -462,8 +462,11 @@ def profile_chunk(buf, key, G, cfg, top: int = 10) -> None:
     log(f"[profile] {key} G={G}: {launches} kernel launches and copies, "
         f"{total_us / 1e3:.2f} ms of card time; top {top} by name:")
     for us, count, name in rows[:top]:
+        for noise in ("void ", "at::native::", "(anonymous namespace)::",
+                      "at::TensorIteratorBase&", "std::"):
+            name = name.replace(noise, "")
         log(f"[profile]   {us / 1e3:8.3f} ms {100 * us / total_us:5.1f} % "
-            f"x{count:<5d} {name[:110]}")
+            f"x{count:<5d} {name[:150]}")
 
 
 # -- phase 5 ----------------------------------------------------------------

@@ -190,7 +190,9 @@ def _decode_region(payload: tuple, tile, cfg):
 
 class MpRegionExecutor:
     """Parent-side coordinator.  Persistent across passes (children stay
-    warm); the device dispatch path is identical to streamed_map's."""
+    warm); the device dispatch path is identical to streamed_map's: one
+    ``device``, or a ``mesh`` of several (parallel/mesh.py) over which the
+    parent splits each chunk.  Children hide every card either way."""
 
     def __init__(self, cfg, n_children: int = 2, device=None, mesh=None):
         import pickle

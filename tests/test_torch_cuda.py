@@ -1,6 +1,7 @@
 """Tests of the port that need the card: kernels B1 (banded DP) and B4
-(traceback) and the region step on CUDA against their plain versions, byte
-for byte (tolerance 0).
+(traceback) and the region step on CUDA against their plain versions, the
+mesh-sharded region step and DP against the unsharded ones, byte for byte
+(tolerance 0), and an NCCL group of one.
 
 They skip without a CUDA device.  This file imports no jax, so that it runs
 on a machine without it:
@@ -215,3 +216,122 @@ def test_region_step_on_card_matches_cpu(cuda):
     on_cpu = np.asarray(dx.dispatch_packed(buf, key, 3, cfg,
                                            torch.device("cpu")))
     np.testing.assert_array_equal(on_card, on_cpu)
+
+
+def _two_shards(cuda):
+    """A mesh of the cards present, or two logical shards of the one card."""
+    from focalsv_tpu_torch.parallel.mesh import make_mesh
+    if torch.cuda.device_count() >= 2:
+        return make_mesh(2)
+    return make_mesh(devices=[torch.device("cuda", 0)] * 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoding", ["delta", "dense"])
+def test_sharded_region_step_on_card_matches_unsharded(cuda, encoding):
+    """Each chunk split over two shards, each on a stream of its own, gives
+    the unsharded call's bytes; repeated so that a buffer freed under one
+    stream and reused under another would show."""
+    from focalsv_tpu_torch import native
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.parallel.wire import BLOCK
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    from focalsv_tpu_torch.testing import simulate as sim
+    cfg = preset("HIFI")
+    rgs = [sim.simulate_region(seed=s, ref_len=9000, coverage=20, n_snps=10,
+                               read_len_mean=4000) for s in (1, 2, 3)]
+    tiles = [dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, cfg) for rg in rgs]
+    if encoding == "dense":
+        for t in tiles:
+            # one row width for all, so that they share a bucket
+            t.nib, starts, t.row_lens, _ins, t.W_pad = native.build_tile_rows(
+                t.usable, 0, t.region_len, lambda n: 12288, BLOCK)
+            t.row_starts = starts
+            t.q_starts = (starts // BLOCK).astype(np.int32)
+            t.encoding = "dense"
+    keys = [dx._bucket_key(t, cfg) for t in tiles]
+    key = (keys[0][0],) + tuple(max(k[i] for k in keys)
+                                for i in range(1, len(keys[0])))
+    buf = dx.pack_chunk(tiles + [None], [0, 1, 2, 3], key, 4)
+    want = np.asarray(dx.dispatch_packed(buf, key, 4, cfg, cuda))
+    mesh = _two_shards(cuda)
+    pending = [dx.dispatch_packed(buf, key, 4, cfg, None, mesh)
+               for _ in range(4)]
+    for res in pending:
+        np.testing.assert_array_equal(np.asarray(res), want)
+    assert all(res.is_ready() for res in pending)
+
+
+@pytest.mark.cuda
+def test_sharded_banded_align_on_card_matches_unsharded(cuda):
+    """B1 once per shard, on the shard's device and stream; scores and
+    direction bytes equal the unsharded kernel's and the plain version's."""
+    from focalsv_tpu_torch.parallel import mesh as pmesh
+    host = _pairs(5, 8, 600, 128)
+    args = [torch.from_numpy(a).to(cuda) for a in host]
+    mesh = _two_shards(cuda)
+    before = align_cuda.launches
+    s_sh, d_sh = pmesh.sharded_banded_align(*host, mesh=mesh, band=128)
+    scores, cand, global_cand = pmesh.sharded_sv_candidate_step(*host,
+                                                                mesh=mesh)
+    torch.cuda.synchronize()
+    assert align_cuda.launches == before + 2 * mesh.size
+    s_k, d_k = talign.banded_align(*args, band=128)
+    s_p, d_p = talign.banded_align_batch(*args, band=128)
+    dev0 = mesh.devices[0]
+    assert s_sh.device == dev0 and d_sh.device == dev0
+    assert torch.equal(s_sh, s_k.to(dev0)) and torch.equal(d_sh, d_k.to(dev0))
+    assert torch.equal(s_sh, s_p.to(dev0)) and torch.equal(d_sh, d_p.to(dev0))
+    hdir = d_p & talign.DIR_H_MASK
+    want = torch.stack([s_p, (hdir == 1).sum(dim=(1, 2), dtype=torch.int32),
+                        (hdir == 2).sum(dim=(1, 2), dtype=torch.int32)], 1)
+    assert torch.equal(scores, s_p.to(dev0))
+    assert torch.equal(cand, want.to(dev0))
+    assert [c.device for c in global_cand] == list(mesh.devices)
+    assert all(torch.equal(c.cpu(), want.cpu()) for c in global_cand)
+
+
+@pytest.mark.cuda
+def test_kernel_runs_on_the_tensors_device(cuda):
+    """B1 and B4 launched on the last card present (not the current
+    device): the launcher switches to the tensors' device."""
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    args = [torch.from_numpy(a).to(last) for a in _pairs(7, 4, 400, 128)]
+    s_k, d_k = talign.banded_align(*args, band=128)
+    s_p, d_p = talign.banded_align_batch(*args, band=128)
+    assert s_k.device == last and torch.equal(s_k, s_p)
+    assert torch.equal(d_k, d_p)
+    ops_k, n_k = align_cuda.traceback_cuda(d_k, args[1], args[3], args[4],
+                                           128, 400)
+    ops_p, n_p = talign.traceback_device(d_k, args[1], args[3], args[4],
+                                         128, 400)
+    assert torch.equal(n_k, n_p) and torch.equal(ops_k, ops_p)
+
+
+@pytest.mark.cuda
+def test_nccl_group_of_one_on_card(cuda):
+    """initialize(backend="nccl") at world size 1, an all_gather of a record
+    payload through the card, shutdown."""
+    import socket
+
+    from focalsv_tpu_torch.io.vcf import VcfRecord
+    from focalsv_tpu_torch.parallel import distributed, gather
+    recs = [VcfRecord("chr1", 100 + i, f"r{i}", "A", "A" + "ACGT" * (3 + i),
+                      ".", "PASS", {"SVTYPE": "INS", "SVLEN": 4 * (3 + i)},
+                      "0/1") for i in range(5)]
+    flat, lens = gather.encode_records(recs)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    try:
+        assert distributed.initialize(f"localhost:{port}", 1, 0,
+                                      backend="nccl") == (0, 1)
+        g_flat = gather._process_allgather(flat)
+        g_lens = gather._process_allgather(lens)
+        assert gather.allgather_records(recs) == recs
+    finally:
+        distributed.shutdown()
+    assert distributed.world_size() == 1
+    assert g_flat.shape == (1, flat.size) and g_lens.shape == (1, 5)
+    back = gather.decode_records(g_flat[0], g_lens[0])
+    assert [r.to_line() for r in back] == [r.to_line() for r in recs]

@@ -5,11 +5,14 @@ subprocess with jax and focalsv_tpu blocked: it imports focalsv_tpu_torch,
 runs the golden HIFI fixture in device mode, an OLC region with every DP
 job on the device batch, and every other entry point of the port once (the
 multi-process executor, a host region with pair-HMM realignment, the
-complex-SV, evaluation, somatic, clean-up and call-set CLIs), and records
+complex-SV, evaluation, somatic, clean-up and call-set CLIs, the dry run on
+a mesh of two shards), and records
 any attempt to import jax, focalsv_tpu
 or a module below either (an attempt that the port's code might catch and
-pass over would otherwise go unseen).  A static case reads the port's
-sources and chip_smoke.py for such an import."""
+pass over would otherwise go unseen).  A second case runs the two-rank entry
+(testing/dist_worker.py over gloo) with the same block in each rank.  A
+static case reads the port's sources and chip_smoke.py for such an
+import."""
 
 import os
 import re
@@ -21,7 +24,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "focalsv_tpu_torch"
 
-GUARD = textwrap.dedent('''
+BLOCK = textwrap.dedent('''
     import importlib.abc
     import sys
 
@@ -38,7 +41,9 @@ GUARD = textwrap.dedent('''
     sys.modules["jax"] = None
     sys.modules["focalsv_tpu"] = None
     sys.meta_path.insert(0, Guard())
+''')
 
+GUARD = BLOCK + textwrap.dedent('''
     import dataclasses
     import os
 
@@ -147,6 +152,12 @@ GUARD = textwrap.dedent('''
                 "0,chr1,1000000,chr1,1200000,200000,DUP\\n")
     assert callset_to_bed.main([f"{out}/calls.csv", f"{out}/calls.bed"]) == 0
     assert clean.main(["--out_dir", f"{out}/olc", "--dry_run"]) == 0
+
+    # the multi-device path: the dry run on a mesh of two shards
+    from focalsv_tpu_torch.testing import dryrun
+    fn, args = dryrun.entry()
+    assert fn(*args)[0].shape == (8,)
+    dryrun.dryrun_multichip(2)
     print("BLOCKED", blocked)
     assert not blocked, blocked
     assert sys.modules.get("jax") is None
@@ -165,6 +176,63 @@ def test_port_runs_with_jax_blocked(tmp_path):
         capture_output=True, text=True, env=env, timeout=600, cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
     assert "GUARD OK" in proc.stdout
+
+
+RANK = BLOCK + textwrap.dedent('''
+    import runpy
+    sys.argv = ["dist_worker"] + sys.argv[1:]
+    runpy.run_module("focalsv_tpu_torch.testing.dist_worker",
+                     run_name="__main__")
+    import torch.distributed
+    assert not torch.distributed.is_initialized()
+    assert not blocked, blocked
+    assert sys.modules.get("jax") is None
+    assert sys.modules.get("focalsv_tpu") is None
+    print("GUARD OK")
+''')
+
+
+def test_two_rank_entry_runs_with_jax_blocked(tmp_path):
+    """Two ranks of testing/dist_worker.py over gloo on the CPU, jax and
+    focalsv_tpu blocked in each: the collective branch writes the VCF and
+    each rank leaves its group."""
+    import socket
+
+    from focalsv_tpu_torch.io.fasta import write_fasta
+    from focalsv_tpu_torch.testing import simulate as sim
+    rg = sim.simulate_region(seed=11, ref_len=8_192, coverage=12, n_snps=12,
+                             svs=[sim.SimSV("DEL", 4_000, 120, "1/1")],
+                             chrom="chr21")
+    sim.write_region_bam(rg, str(tmp_path / "r.bam"))
+    write_fasta(str(tmp_path / "ref.fa"), [("chr21", rg.ref)])
+    with open(tmp_path / "t.bed", "w") as f:
+        f.write("chr21\t500\t4100\nchr21\t3900\t7700\n")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, FOCALSV_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT))
+    env.pop("JAX_PLATFORMS", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK, "--pid", str(rank), "--nprocs", "2",
+         "--port", str(port), "--bam", str(tmp_path / "r.bam"), "--ref",
+         str(tmp_path / "ref.fa"), "--bed", str(tmp_path / "t.bed"), "--out",
+         str(tmp_path / "out"), "--device", "cpu", "--backend", "gloo"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=tmp_path) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "GUARD OK" in out, out[-4000:]
+    assert "final VCF (collective gather)" in outs[0]
+    with open(tmp_path / "out" / "FocalSV_Final_SV.vcf") as f:
+        dels = [ln for ln in f if "SVTYPE=DEL" in ln]
+    assert len(dels) == 1      # called by both ranks, kept once
 
 
 def test_no_jax_import_in_port_sources():

@@ -465,3 +465,37 @@ def test_delta_kernel_matches_dense_kernel():
         d_sym[0] == 254, 5, np.where(d_sym[0] == 255, 15, d_sym[0])) % 16)
     np.testing.assert_array_equal(cov, d_cov[0])
     assert n_sites > 4 and (hp > 0).sum() > 10   # the parity is exercised
+
+
+def test_mp_executor_on_a_mesh_equals_one_device(tmp_path, monkeypatch):
+    """MpRegionExecutor with a mesh: the parent splits each chunk over the
+    shards (3 regions in batches rounded to the mesh) and the children
+    finish the same records as without one."""
+    from focalsv_tpu_torch.pipeline.mp_exec import MpRegionExecutor
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")      # the children inherit it
+    _cfg, tcfg, _ = _tiles(0)
+    jobs = []
+    for i in range(3):
+        rg = sim.simulate_region(seed=8300 + i, ref_len=4000, coverage=12,
+                                 n_snps=6, read_len_mean=1500,
+                                 svs=[sim.SimSV("DEL", 2000, 90 + 10 * i,
+                                                "1/1")])
+        bam, ref = str(tmp_path / f"r{i}.bam"), str(tmp_path / f"r{i}.npy")
+        sim.write_region_bam(rg, bam)
+        np.save(ref, rg.ref)
+        jobs.append((bam, ref, "chr21"))
+
+    def keys(out):
+        return [[(r.pos, r.ref, r.alt, r.gt) for r in res.records]
+                for _n, res in out]
+
+    mesh = tmesh.make_mesh(2)
+    with MpRegionExecutor(tcfg, n_children=1, mesh=mesh) as ex:
+        assert ex.n_devices == 2 and ex.device == mesh.devices[0]
+        stats = {}
+        sharded = keys(ex.run(jobs, collect="records", stats=stats))
+        assert stats["n_chunks"] == 1 and stats["cuda_initialized"] == 0
+    with MpRegionExecutor(tcfg, n_children=1) as ex:
+        assert ex.n_devices == 1
+        local = keys(ex.run(jobs, collect="records"))
+    assert sharded == local and all(sharded)

@@ -51,8 +51,22 @@ DIFFERENT = {
                           "the sources",
     "config.py": "the reference's file plus config_from_reference",
     "pipeline/mp_exec.py": "children hide the card instead of pinning jax; "
-                           "one device, no mesh; a failing is_ready raises",
+                           "a device beside the mesh; a failing is_ready "
+                           "raises",
+    "testing/dist_worker.py": "joins a torch.distributed group instead of "
+                              "jax.distributed, with --backend and --device, "
+                              "and leaves it before it returns",
 }
+
+# functions of forked modules that stay the reference's own lines
+VERBATIM_FUNCTIONS = [
+    ("parallel/distributed.py", "shard_regions"),
+    ("parallel/distributed.py", "host_vcf_path"),
+    ("parallel/distributed.py", "merge_host_vcfs"),
+    ("parallel/gather.py", "encode_records"),
+    ("parallel/gather.py", "decode_records"),
+    ("parallel/mesh.py", "pad_batch_to_devices"),
+]
 
 
 def _as_reference(text: str) -> str:
@@ -62,6 +76,35 @@ def _as_reference(text: str) -> str:
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_copy_equals_reference(rel):
     assert _as_reference((PORT / rel).read_text()) == (REF / rel).read_text()
+
+
+def _function_source(path: Path, name: str) -> str:
+    import ast
+    text = path.read_text()
+    node = next(n for n in ast.parse(text).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    return ast.get_source_segment(text, node)
+
+
+@pytest.mark.parametrize("rel,name", VERBATIM_FUNCTIONS)
+def test_function_equals_reference(rel, name):
+    assert _as_reference(_function_source(PORT / rel, name)) == \
+        _function_source(REF / rel, name)
+
+
+def test_dist_worker_keeps_the_reference_arguments():
+    """The per-rank entry takes every option of the reference's, hands
+    run_target_mode the same arguments and adds --backend and --device."""
+    ref = (REF / "testing/dist_worker.py").read_text().splitlines()
+    port = (PORT / "testing/dist_worker.py").read_text()
+    options = [ln.strip() for ln in ref if "ap.add_argument(" in ln]
+    assert len(options) == 9
+    for ln in options:
+        assert ln in port, ln
+    for ln in ('ap.add_argument("--backend"', 'ap.add_argument("--device"',
+               "process_index=args.pid,", "process_count=args.nprocs)",
+               "distributed.shutdown()", 'print(f"FINAL:{path}", flush=True)'):
+        assert ln in port, ln
 
 
 def test_listed_files_exist_in_both_packages():
