@@ -3,7 +3,7 @@
 Replaces the reference's manual per-chromosome SLURM pattern (README.md:207-213:
 one job per chromosome into a shared out_dir, then `cat | vcf-sort`): every
 host joins one `torch.distributed` process group, takes its contiguous shard
-of the region list (the `split_bed` analog), runs the chromosome driver on
+of the region list (the `split_bed` analog), runs process_chromosome on
 its shard, and the hosts' records meet either in a collective gather over
 the group (parallel/gather.py) or, where no group was set up, in host 0's
 merge of the per-host VCFs on a shared file system.

@@ -42,7 +42,6 @@ class Mesh:
         if len(kinds) != 1 or not kinds <= {"cuda", "cpu"}:
             raise ValueError(f"a mesh is all cuda or all cpu, got "
                              f"{[str(d) for d in self.devices]}")
-        self.axis_names = (DATA_AXIS,)
         self._streams: dict[int, torch.cuda.Stream] = {}
 
     @property

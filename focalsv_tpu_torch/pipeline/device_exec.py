@@ -299,6 +299,8 @@ def dispatch_packed(buf: np.ndarray, key: tuple, G: int,
     from focalsv_tpu_torch.parallel import region_step as rs
     kw = rs.phase_consensus_kwargs(cfg.phasing)
     sharded = mesh is not None and mesh.size > 1
+    if device is None:
+        device = _device_of(None, mesh)[0]
     if key[0] == "delta":
         _, Rp, Lp, Ds, Dd = key
         kw.update(G=G, R=Rp, L=Lp, Ds=Ds, Dd=Dd, Drle=drle_of(key))

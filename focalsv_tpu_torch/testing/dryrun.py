@@ -43,7 +43,7 @@ def entry():
 def dryrun_multichip(n_devices: int, devices=None) -> None:
     """Execute the full sharded region step on an n-shard mesh:
     region-batch data parallelism across (1) the PRODUCTION chromosome
-    driver (process_chromosome in device mode -- tile build -> sharded
+    step (process_chromosome in device mode -- tile build -> sharded
     region step -> host finish -> FP filter/dedup/refine), (2) the packed
     row entry vs the unpacked dense entry bit-for-bit, and (3) banded
     alignment DP with the gathered cross-region candidate table."""
