@@ -195,12 +195,12 @@ def map_to_host(mesh: Mesh, parts: list[tuple], fn) -> tuple[list, list]:
     return hosts, events
 
 
-def gather_shards(mesh: Mesh, shard_results: list, device=None) -> list:
-    """Concatenate the shards' output tuples on ``device`` (the first
-    shard's by default) in shard order: the caller's stream waits for each
-    shard's event, copies peer to peer where a shard sits on another card,
-    and the shards' tensors are marked as used by it."""
-    device = torch.device(device) if device is not None else mesh.devices[0]
+def gather_shards(mesh: Mesh, shard_results: list) -> list:
+    """Concatenate the shards' output tuples on the first shard's device in
+    shard order: the caller's stream waits for each shard's event, copies
+    peer to peer where a shard sits on another card, and the shards'
+    tensors are marked as used by it."""
+    device = mesh.devices[0]
     if device.type != "cuda":
         return [None if outs[0] is None else torch.cat(outs)
                 for outs in zip(*(res for res, _ in shard_results))]
