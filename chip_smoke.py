@@ -62,9 +62,8 @@ on the card in phases, and exits non-zero at the first phase that fails:
    shutdown).
 
 Phase 4 also prints the region step's card time by kernel name for one
-delta and one rows chunk (torch.profiler).  With --multi-device-only the
-script runs phases 1, 2 and 11 alone (phase 6's guided device run
-included), for a machine with several cards.
+delta and one rows chunk (torch.profiler).  The script runs unchanged on a
+machine with several cards: phase 11's mesh and ranks take a card each.
 
 The last two lines are the kernels' JSON record and the result line.  A
 kernel's bound_ms is the larger of its bytes (each input read once, each
@@ -449,16 +448,15 @@ def profile_chunk(buf, key, G, cfg, top: int = 10) -> None:
         sync()
     rows = []
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
+        us = e.self_device_time_total
         if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
             rows.append((us, e.count, e.key))
+    if not rows:
+        raise AssertionError(f"torch.profiler recorded no device time for "
+                             f"the region step of bucket {key}")
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
-    if not rows:
-        log(f"[profile] {key}: torch.profiler recorded no device time here")
-        return
     log(f"[profile] {key} G={G}: {launches} kernel launches and copies, "
         f"{total_us / 1e3:.2f} ms of card time; top {top} by name:")
     for us, count, name in rows[:top]:
@@ -559,10 +557,9 @@ def run_mode(bam, fa, bed, out, method, mode, n, mesh=None):
     return vcf, stats, n_rec
 
 
-def slice_run(regions, work: str, guided_only: bool = False):
+def slice_run(regions, work: str):
     """Device runs (the main path, with the launch counts) then host runs;
-    each device VCF must equal its host VCF.  ``guided_only``: the guided
-    device run alone (what phase 11 compares with)."""
+    each device VCF must equal its host VCF."""
     from focalsv_tpu_torch.ops import align_cuda
     bam, fa, beds = write_chromosome(regions, work)
     n_all, n_olc = len(regions), N_OLC_REGIONS
@@ -574,10 +571,8 @@ def slice_run(regions, work: str, guided_only: bool = False):
     launches_guided = align_cuda.launches
     inputs = dict(fasta=fa, bam=bam, bed=beds[n_all],
                   guided_vcf=f"{work}/guided_device/FocalSV_Final_SV.vcf",
-                  guided_rps=n_all / g_stats["wall_s"])
-    if guided_only:
-        del os.environ["FOCALSV_DP_RT_MS"]
-        return dict(inputs, b1=launches_guided, b4=0)
+                  guided_rps=n_all / g_stats["wall_s"],
+                  guided_b1=launches_guided)
     o_dev, o_stats, o_rec = run_mode(bam, fa, beds[n_olc],
                                      f"{work}/olc_device", "olc", "device",
                                      n_olc)
@@ -925,11 +920,11 @@ def sharded_region_steps(jobs, mesh) -> None:
                                  f"unsharded one for bucket {key}")
 
 
-def sharded_dp(rng, mesh) -> int:
+def sharded_dp(rng, mesh) -> tuple[int, int]:
     """sharded_banded_align at the OLC-polish shape and
     sharded_sv_candidate_step against the unsharded B1 and the plain
-    version; returns B1's launches on the sharded path (one per shard and
-    call)."""
+    version; returns B1's and B4's launches on the sharded path with the
+    dry run (B1: one per shard and sharded call)."""
     from focalsv_tpu_torch.ops import align as talign
     from focalsv_tpu_torch.ops import align_cuda
     from focalsv_tpu_torch.parallel import mesh as pmesh
@@ -991,7 +986,7 @@ def sharded_dp(rng, mesh) -> int:
     if err_k or err_p or not cand_same or launches_dp != 2 * mesh.size:
         raise AssertionError("the sharded DP differs from the unsharded one "
                              "or did not launch B1 once per shard")
-    return launches
+    return launches, tb
 
 
 def run_ranks(commands, envs) -> tuple[list[str], float]:
@@ -1124,25 +1119,40 @@ def nccl_single(main_path) -> None:
         raise AssertionError("the NCCL phase failed")
 
 
-def multi_device(rng, jobs, main_path, work: str) -> int:
-    """Phase 11; returns B1's launches on the sharded DP path."""
+def multi_device(rng, jobs, main_path, work: str) -> dict:
+    """Phase 11; returns the (B1, B4) launches of its two paths in this
+    process: the sharded DP with the dry run, and run_target_mode through
+    the mesh.  (The two ranks launch in processes of their own.)"""
+    from focalsv_tpu_torch.ops import align_cuda
     mesh = smoke_mesh()
     sharded_region_steps(jobs, mesh)
-    b1 = sharded_dp(rng, mesh)
+    dp = sharded_dp(rng, mesh)
     with open(main_path["guided_vcf"]) as f:
         want = f.read()
-    got, stats, _ = run_mode(main_path["bam"], main_path["fasta"],
-                             main_path["bed"], f"{work}/guided_mesh",
-                             "guided", "device", N_REGIONS, mesh=mesh)
+    os.environ["FOCALSV_DP_RT_MS"] = "0"    # as phase 6's guided run had it
+    align_cuda.reset_launches()
+    try:
+        got, stats, _ = run_mode(main_path["bam"], main_path["fasta"],
+                                 main_path["bed"], f"{work}/guided_mesh",
+                                 "guided", "device", N_REGIONS, mesh=mesh)
+    finally:
+        del os.environ["FOCALSV_DP_RT_MS"]
+    through_mesh = (align_cuda.launches, align_cuda.traceback_launches)
     log(f"[mesh] run_target_mode through the mesh: VCF equal to phase 6's "
         f"device VCF byte for byte: {got == want}; "
         f"{N_REGIONS / stats['wall_s']:.3f} regions/s beside phase 6's "
-        f"{main_path['guided_rps']:.3f} on one device, same run")
+        f"{main_path['guided_rps']:.3f} "
+        + ("on one device" if torch.cuda.device_count() < 2 else
+           "on the mesh that run_target_mode builds itself of every card")
+        + f", same run; launches "
+        f"B1 {through_mesh[0]} (phase 6's guided run: "
+        f"{main_path['guided_b1']}), B4 {through_mesh[1]}")
     if got != want or stats["n_chunks"] == 0:
         raise AssertionError("the mesh run's VCF differs from phase 6's")
     two_ranks(main_path, work)
     nccl_single(main_path)
-    return b1
+    return {"sharded_dp_and_dry_run": dp,
+            "target_mode_through_mesh": through_mesh}
 
 
 def child_pids() -> list[int]:
@@ -1197,7 +1207,7 @@ def stop_helpers() -> list[int]:
     return left
 
 
-def main(multi_only: bool = False) -> int:
+def main() -> int:
     device_check()
     if not os.path.isdir(os.path.join(ROOT, "focalsv_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository",
@@ -1209,60 +1219,51 @@ def main(multi_only: bool = False) -> int:
     host_libraries()
     build_kernels()
     rng = np.random.default_rng(0)
-    if not multi_only:
-        b1, b4 = kernel_parity(rng, B1_CASES)
-        b4.append(dict(case="crafted_walks", max_abs_err=walk_parity()))
+    b1, b4 = kernel_parity(rng, B1_CASES)
+    b4.append(dict(case="crafted_walks", max_abs_err=walk_parity()))
     t0 = time.perf_counter()
     regions = _simulate(N_REGIONS)
     log(f"[data] simulated {len(regions)} HiFi regions at {COVERAGE}x in "
         f"{time.perf_counter() - t0:.1f} s")
     jobs = region_tiles(regions[: 2 * len(SIZE_MIX)], n_clr=2)
-    if not multi_only:
-        region_step_parity(jobs)
+    region_step_parity(jobs)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT,
                                                                    "build"))
     try:
-        if multi_only:
-            main_path = slice_run(regions, work, guided_only=True)
-            multi_device(rng, jobs, main_path, work)
-        else:
-            golden(work)
-            main_path = slice_run(regions, work)
-            mp_executor(regions, work, main_path["guided_rps"])
-            complex_b1, complex_b4 = complex_svs(work, main_path["olc_out"],
-                                                 main_path["fasta"])
-            pairhmm_phase(regions[0])
-            evaluation_phase(regions, work, main_path["guided_vcf"])
-            mesh_b1 = multi_device(rng, jobs, main_path, work)
+        golden(work)
+        main_path = slice_run(regions, work)
+        mp_executor(regions, work, main_path["guided_rps"])
+        complex_b1, complex_b4 = complex_svs(work, main_path["olc_out"],
+                                             main_path["fasta"])
+        pairhmm_phase(regions[0])
+        evaluation_phase(regions, work, main_path["guided_vcf"])
+        mesh = multi_device(rng, jobs, main_path, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     left = stop_helpers()
     log(f"[exit] processes of this run still running: {left}")
     if left:
         raise AssertionError(f"the run left processes behind: {left}")
-    if multi_only:
-        log("[exit] phases 1, 2 and 11 passed (--multi-device-only: no "
-            "result line)")
-        return 0
     kernels = []
-    for name, source, replaces, rows, n, n_complex, n_mesh in (
-            ("banded_align (B1)", "focalsv_tpu_torch/csrc/banded_align.cu",
+    for k, name, source, replaces, rows, n, n_complex in (
+            (0, "banded_align (B1)", "focalsv_tpu_torch/csrc/banded_align.cu",
              "focalsv_tpu/ops/align_pallas.py:122", b1, main_path["b1"],
-             complex_b1, mesh_b1),
-            ("traceback (B4)", "focalsv_tpu_torch/csrc/traceback.cu",
+             complex_b1),
+            (1, "traceback (B4)", "focalsv_tpu_torch/csrc/traceback.cu",
              "focalsv_tpu/ops/align.py:308", b4, main_path["b4"],
-             complex_b4, 0)):
+             complex_b4)):
         polish = next(r for r in rows if r["case"] == "olc_polish")
+        # each path was driven with the counts at 0 just before it and read
+        # just after (B4 is not on the sharded DP path, which stores and
+        # counts the direction bytes and walks none: its count there reads 0)
+        by_path = {"target_mode_guided_and_olc": n,
+                   "complex_sv_target": n_complex,
+                   **{path: counts[k] for path, counts in mesh.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n + n_complex + n_mesh,
-            # each path was driven with the counts at 0 just before it; B4
-            # is not on the sharded DP path (it stores and counts the
-            # direction bytes, and walks none)
-            "launches_by_path": {"target_mode_guided_and_olc": n,
-                                 "complex_sv_target": n_complex,
-                                 "sharded_dp_and_dry_run": n_mesh},
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": polish["ms"], "plain_ms": polish["plain_ms"],
             "bound_ms": polish["bound_ms"], "bound_by": polish["bound_by"],
@@ -1283,7 +1284,7 @@ if __name__ == "__main__":
         complex_run(sys.argv[2], "cpu", sys.argv[3], sys.argv[4])
         sys.exit(0)
     try:
-        code = main(multi_only=sys.argv[1:] == ["--multi-device-only"])
+        code = main()
     finally:
         stop_helpers()               # on a failed phase too
     sys.exit(code)
