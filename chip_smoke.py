@@ -8,8 +8,8 @@ on the card in phases, and exits non-zero at the first phase that fails:
 1. device check (a CUDA card must be present) and the card's name and power
    limit as nvidia-smi reports them; the port's g++-built host libraries
    (native/*.cpp) must build and load;
-2. build the kernels (csrc/*.cu: B1, the banded DP, and B4, its traceback)
-   with nvcc for sm_90a, one nvcc per source;
+2. build the kernels (csrc/*.cu: B1, the banded DP, B4, its traceback, and
+   B2, the delta region step) with nvcc for sm_90a, one nvcc per source;
 3. B1 against its plain PyTorch version, both on the card, byte for byte
    (tolerance 0), at the shapes of the main path: OLC read polish at
    batches of 128, 2 and 1 pairs, aligner gap fill, a leading-insertion
@@ -24,6 +24,9 @@ on the card in phases, and exits non-zero at the first phase that fails:
    than a tile (testing/dp_cases.py::walk_cases);
 4. the region step on the card against the same step on the CPU, byte for
    byte: HiFi 30x delta chunks at 15-100 kb and one noisy CLR dense chunk;
+   at every delta chunk and every case of testing/region_cases.py, B2
+   against its plain version on the card and on the CPU, byte for byte,
+   and both timed on the card in turns;
 5. the golden HIFI fixture through the port's CLI in device mode, equal to
    tests/data/golden/hifi/expected.vcf byte for byte;
 6. 32 simulated HiFi regions (15-100 kb at 30x) as BAM + FASTA + BED through
@@ -62,7 +65,9 @@ on the card in phases, and exits non-zero at the first phase that fails:
    shutdown).
 
 Phase 4 also prints the region step's card time by kernel name for one
-delta and one rows chunk (torch.profiler).  The script runs unchanged on a
+delta and one rows chunk (torch.profiler); a delta chunk must take at most
+5 launches and copies.  B2's launches are read from its count on every
+path that runs the region step (phases 4, 5, 6, 7 and 11).  The script runs unchanged on a
 machine with several cards: phase 11's mesh and ranks take a card each.
 
 The last two lines are the kernels' JSON record and the result line.  A
@@ -105,6 +110,15 @@ INT32_OPS_PER_S = 67e12 / 4
 B1_OPS_PER_CELL = 30
 # integer operations per step of a walk (index, load, mask, state, emit)
 B4_OPS_PER_STEP = 10
+# kernel B2's integer operations: per column of a region, over its three
+# sweeps (events into the tile, two scans, the counts, the het test and the
+# strip key; the two votes, their argmax and the track), and per (read,
+# site) entry of a MEC round (the assignment's and the vote's bit tests)
+B2_OPS_PER_COLUMN = 100
+B2_OPS_PER_ENTRY = 10
+# kernel B2's launches on each path that runs the region step, each read
+# from its count, set to 0 just before the path
+B2_LAUNCHES: dict = {}
 
 
 def log(msg: str) -> None:
@@ -179,7 +193,8 @@ def build_kernels() -> None:
                 (k for k in ("banded_align_reg_kernelILi4E",
                              "banded_align_reg_kernelILi8E",
                              "banded_align_reg_kernelILi16E",
-                             "banded_align_wide_kernel", "traceback_kernel")
+                             "banded_align_wide_kernel", "traceback_kernel",
+                             "region_step_kernel")
                  if k in line), line)
         elif not ("registers" in line or "spill" in line):
             continue
@@ -406,17 +421,61 @@ def region_chunks(jobs, n_devices):
                                                         key, G)
 
 
+def delta_kwargs(key, G, cfg) -> dict:
+    """The region step's arguments for a delta chunk, as dispatch_packed
+    gives them."""
+    from focalsv_tpu_torch.parallel import region_step as rs
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    _, R, L, Ds, Dd = key
+    return dict(rs.phase_consensus_kwargs(cfg.phasing), G=G, R=R, L=L, Ds=Ds,
+                Dd=Dd, Drle=dx.drle_of(key))
+
+
+def b2_bound(dev_buf, out, kw) -> tuple[float, str]:
+    """B2's least time on the card for one chunk: its bytes (the chunk read
+    once, the results written once) over the memory rate, against its
+    integer operations over the int32 rate.  The operations count this
+    run's data: every column, and the (read, site) entries of the MEC
+    rounds the data needs (the fewest rounds that give the same bytes) plus
+    the final assignment."""
+    from focalsv_tpu_torch.parallel import region_step as rs
+    n_sites = out[:, :4].contiguous().view(torch.int32).reshape(-1).long()
+    rounds = kw["mec_iters"]
+    for k in range(kw["mec_iters"]):
+        if torch.equal(rs.phase_consensus_delta_flat(
+                dev_buf, **dict(kw, mec_iters=k)), out):
+            rounds = k
+            break
+    entries = int(n_sites.sum()) * kw["R"] * (rounds + 1)
+    ops = (kw["G"] * kw["L"] * B2_OPS_PER_COLUMN
+           + entries * B2_OPS_PER_ENTRY)
+    t_bytes = (dev_buf.numel() + out.numel()) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
 def region_step_parity(jobs):
     """The port's region step on the card vs on the CPU, byte for byte, at
-    production chunk sizes; returns ms per chunk on the card by bucket."""
+    production chunk sizes; at every delta chunk also kernel B2 against its
+    plain version on the card, timed in turns.  Returns B2's rows."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
     from focalsv_tpu_torch.pipeline import device_exec as dx
-    times = {}
-    cuda = DEVICE
+    chunks = list(region_chunks(jobs, 1))
+    # the path: every chunk through dispatch_packed once, counts from 0
+    region_cuda.reset_launches()
+    firsts = [np.asarray(dx.dispatch_packed(buf, key, G, cfg, DEVICE))
+              for cfg, key, G, _n, buf in chunks]
+    B2_LAUNCHES["region_step_chunks"] = region_cuda.launches
+    n_delta = sum(key[0] == "delta" for _c, key, *_ in chunks)
+    log(f"[region_step] B2 launches on {len(chunks)} chunks through "
+        f"dispatch_packed: {region_cuda.launches} ({n_delta} delta chunks)")
+    if region_cuda.launches != n_delta:
+        raise AssertionError("B2 did not launch once per delta chunk")
+    rows = []
     profiled = set()
-    for cfg, key, G, n_real, buf in region_chunks(jobs, 1):
-        dev_res = dx.dispatch_packed(buf, key, G, cfg, cuda)
-        got = np.asarray(dev_res)
-        ms = time_ms(lambda: dx.dispatch_packed(buf, key, G, cfg, cuda)
+    for (cfg, key, G, n_real, buf), got in zip(chunks, firsts):
+        ms = time_ms(lambda: dx.dispatch_packed(buf, key, G, cfg, DEVICE)
                      .host, 2)
         t0 = time.perf_counter()
         want = np.asarray(dx.dispatch_packed(buf, key, G, cfg,
@@ -429,11 +488,58 @@ def region_step_parity(jobs):
         if not same:
             raise AssertionError(f"region step on the card differs from "
                                  f"the CPU for bucket {key}")
-        times[str(key)] = ms
+        if key[0] == "delta":
+            rows.append(b2_against_plain(str(key), buf, delta_kwargs(
+                key, G, cfg), want))
         if key[0] not in profiled:           # one delta and one rows chunk
             profiled.add(key[0])
             profile_chunk(buf, key, G, cfg)
-    return times
+    return rows
+
+
+def b2_against_plain(case, buf, kw, cpu_out=None) -> dict:
+    """B2 on the card against its plain version on the card and on the CPU,
+    byte for byte; ms a chunk of both on the card (CUDA events, in turns:
+    kernel, plain, plain, kernel)."""
+    from focalsv_tpu_torch.parallel import region_step as rs
+    kw = {**rs.STEP_DEFAULTS, **kw}
+    dev = torch.from_numpy(buf).to(DEVICE)
+
+    def kernel():
+        return rs.phase_consensus_delta_flat(dev, **kw)
+
+    def plain():
+        return rs.phase_consensus_delta_flat_plain(dev, **kw)
+
+    out = kernel()
+    on_card = plain()
+    sync()
+    if cpu_out is None:
+        cpu_out = rs.phase_consensus_delta_flat(torch.from_numpy(buf),
+                                                **kw).numpy()
+    host = out.cpu().numpy()
+    err = int(np.abs(host.astype(np.int16) - cpu_out.astype(np.int16)).max())
+    err = max(err, int((out.int() - on_card.int()).abs().max()))
+    k1, p1 = time_ms(kernel, 5), time_ms(plain, 2)
+    p2, k2 = time_ms(plain, 2), time_ms(kernel, 5)
+    bound, by = b2_bound(dev, out, kw)
+    row = dict(case=case, L=kw["L"], max_abs_err=err, ms=(k1 + k2) / 2,
+               plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by)
+    log(f"[b2] {case}: G={kw['G']} R={kw['R']} L={kw['L']} "
+        f"Drle={kw['Drle']} S={kw['max_sites']} max_abs_err={err} (card "
+        f"plain and CPU) kernel_ms={k1:.3f},{k2:.3f} "
+        f"plain_ms={p1:.2f},{p2:.2f} bound_ms={bound:.4f} bound_by={by}")
+    if err != 0:
+        raise AssertionError(f"B2 differs from its plain version ({case})")
+    return row
+
+
+def region_case_parity() -> list[dict]:
+    """B2 against its plain version on every case of
+    testing/region_cases.py."""
+    from focalsv_tpu_torch.testing import region_cases
+    return [b2_against_plain(name, *region_cases.build(name))
+            for name in sorted(region_cases.CASES)]
 
 
 def profile_chunk(buf, key, G, cfg, top: int = 10) -> None:
@@ -459,6 +565,9 @@ def profile_chunk(buf, key, G, cfg, top: int = 10) -> None:
     launches = sum(r[1] for r in rows)
     log(f"[profile] {key} G={G}: {launches} kernel launches and copies, "
         f"{total_us / 1e3:.2f} ms of card time; top {top} by name:")
+    if key[0] == "delta" and launches > 5:
+        raise AssertionError(f"a delta chunk took {launches} launches and "
+                             f"copies; kernel B2 makes it one launch")
     for us, count, name in rows[:top]:
         for noise in ("void ", "at::native::", "(anonymous namespace)::",
                       "at::TensorIteratorBase&", "std::"):
@@ -470,20 +579,24 @@ def profile_chunk(buf, key, G, cfg, top: int = 10) -> None:
 # -- phase 5 ----------------------------------------------------------------
 
 def golden(work: str) -> None:
+    from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.pipeline import cli
     d = os.path.join(ROOT, "tests", "data", "golden", "hifi")
     out = os.path.join(work, "golden")
     t0 = time.perf_counter()
+    region_cuda.reset_launches()
     rc = cli.main(["--bam_file", f"{d}/reads.bam", "--ref_file",
                    f"{d}/ref.fa", "--target_bed", f"{d}/regions.bed",
                    "--out_dir", out, "--data_type", "HIFI",
                    "--num_threads", "4", "--execution", "device"])
+    B2_LAUNCHES["golden_cli"] = region_cuda.launches
     with open(os.path.join(out, "FocalSV_Final_SV.vcf")) as f:
         got = f.read()
     with open(os.path.join(d, "expected.vcf")) as f:
         same = got == f.read()
     log(f"[golden] rc={rc} byte_exact={same} "
-        f"seconds={time.perf_counter() - t0:.2f}")
+        f"seconds={time.perf_counter() - t0:.2f} "
+        f"B2 launches {B2_LAUNCHES['golden_cli']}")
     if rc != 0 or not same:
         raise AssertionError("golden HIFI VCF differs from expected.vcf")
 
@@ -560,15 +673,18 @@ def run_mode(bam, fa, bed, out, method, mode, n, mesh=None):
 def slice_run(regions, work: str):
     """Device runs (the main path, with the launch counts) then host runs;
     each device VCF must equal its host VCF."""
-    from focalsv_tpu_torch.ops import align_cuda
+    from focalsv_tpu_torch.ops import align_cuda, region_cuda
     bam, fa, beds = write_chromosome(regions, work)
     n_all, n_olc = len(regions), N_OLC_REGIONS
     os.environ["FOCALSV_DP_RT_MS"] = "0"    # every DP job to the device batch
     align_cuda.reset_launches()
+    region_cuda.reset_launches()
     g_dev, g_stats, g_rec = run_mode(bam, fa, beds[n_all],
                                      f"{work}/guided_device", "guided",
                                      "device", n_all)
     launches_guided = align_cuda.launches
+    B2_LAUNCHES["target_mode_guided"] = region_cuda.launches
+    region_cuda.reset_launches()
     inputs = dict(fasta=fa, bam=bam, bed=beds[n_all],
                   guided_vcf=f"{work}/guided_device/FocalSV_Final_SV.vcf",
                   guided_rps=n_all / g_stats["wall_s"],
@@ -578,9 +694,11 @@ def slice_run(regions, work: str):
                                      n_olc)
     launches = align_cuda.launches
     tb_launches = align_cuda.traceback_launches
+    B2_LAUNCHES["target_mode_olc"] = region_cuda.launches
     log(f"[slice] launches on the main path: B1 {launches} "
         f"(guided {launches_guided}, olc {launches - launches_guided}), "
-        f"B4 {tb_launches}")
+        f"B4 {tb_launches}, B2 guided {B2_LAUNCHES['target_mode_guided']} "
+        f"olc {B2_LAUNCHES['target_mode_olc']}")
     jobs = max(o_stats.get("dp_jobs", 0), 1)
     log(f"[slice] batcher d2h bytes per job (olc): "
         f"{o_stats.get('dp_d2h_bytes', 0) / jobs:.0f} with the traceback on "
@@ -600,6 +718,7 @@ def slice_run(regions, work: str):
         "dp batcher n_jobs > 0 (olc)": o_stats.get("dp_jobs", 0) > 0,
         "B1 launches > 0 (olc)": launches - launches_guided > 0,
         "B4 launches > 0 (olc)": tb_launches > 0,
+        "B2 launches > 0 (guided)": B2_LAUNCHES["target_mode_guided"] > 0,
     }
     for name, ok in checks.items():
         log(f"[slice] check {name}: {ok}")
@@ -622,6 +741,7 @@ def mp_executor(regions, work: str, threaded_rps: float) -> None:
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.io.bam import BamReader
     from focalsv_tpu_torch.pipeline import device_exec as dx
+    from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.pipeline.mp_exec import MpRegionExecutor
     from focalsv_tpu_torch.testing import simulate as sim
     cfg = preset("HIFI")
@@ -634,6 +754,7 @@ def mp_executor(regions, work: str, threaded_rps: float) -> None:
         np.save(ref, rg.ref)
         jobs.append((bam, ref, rg.chrom))
     t1 = time.perf_counter()
+    region_cuda.reset_launches()
     want = []
     for bam, ref, chrom in jobs:
         tile = dx.build_tile(list(BamReader(bam)), np.load(ref), 0, chrom,
@@ -674,6 +795,9 @@ def mp_executor(regions, work: str, threaded_rps: float) -> None:
                                      "CUDA")
             if stats["n_chunks"] == 0:
                 raise AssertionError("no chunk reached the region step")
+    B2_LAUNCHES["mp_executor_parent"] = region_cuda.launches
+    log(f"[mp] B2 launches in the parent (in-process path and both "
+        f"passes): {region_cuda.launches}")
     if any(p.is_alive() for p in ex.procs):
         raise AssertionError("a child of the executor outlived close()")
 
@@ -896,9 +1020,23 @@ def time_pending_ms(fn, reps: int) -> float:
 
 def sharded_region_steps(jobs, mesh) -> None:
     """Every chunk of phase 4 at the mesh's batch size: the sharded step
-    against the unsharded one, byte for byte."""
+    against the unsharded one, byte for byte.  B2's launches are counted on
+    one sharded pass over the chunks (one a shard of each delta chunk)."""
+    from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.pipeline import device_exec as dx
-    for cfg, key, G, n_real, buf in region_chunks(jobs, mesh.size):
+    chunks = list(region_chunks(jobs, mesh.size))
+    region_cuda.reset_launches()
+    firsts = [np.asarray(dx.dispatch_packed(buf, key, G, cfg, None, mesh))
+              for cfg, key, G, _n, buf in chunks]
+    B2_LAUNCHES["sharded_region_step"] = region_cuda.launches
+    n_delta = sum(key[0] == "delta" for _c, key, *_ in chunks)
+    log(f"[mesh] B2 launches on one sharded pass over {len(chunks)} chunks: "
+        f"{region_cuda.launches} ({n_delta} delta chunks x {mesh.size} "
+        f"shards)")
+    if region_cuda.launches != n_delta * mesh.size:
+        raise AssertionError("the sharded step did not launch B2 once per "
+                             "shard of each delta chunk")
+    for (cfg, key, G, n_real, buf), got in zip(chunks, firsts):
         def one():
             return dx.dispatch_packed(buf, key, G, cfg, DEVICE)
 
@@ -906,7 +1044,6 @@ def sharded_region_steps(jobs, mesh) -> None:
             return dx.dispatch_packed(buf, key, G, cfg, None, mesh)
 
         want = np.asarray(one())
-        got = np.asarray(sharded())
         same = got.shape == want.shape and np.array_equal(got, want)
         ms_one = time_pending_ms(one, 2)
         ms_sharded = time_pending_ms(sharded, 2)
@@ -1123,7 +1260,7 @@ def multi_device(rng, jobs, main_path, work: str) -> dict:
     """Phase 11; returns the (B1, B4) launches of its two paths in this
     process: the sharded DP with the dry run, and run_target_mode through
     the mesh.  (The two ranks launch in processes of their own.)"""
-    from focalsv_tpu_torch.ops import align_cuda
+    from focalsv_tpu_torch.ops import align_cuda, region_cuda
     mesh = smoke_mesh()
     sharded_region_steps(jobs, mesh)
     dp = sharded_dp(rng, mesh)
@@ -1131,6 +1268,7 @@ def multi_device(rng, jobs, main_path, work: str) -> dict:
         want = f.read()
     os.environ["FOCALSV_DP_RT_MS"] = "0"    # as phase 6's guided run had it
     align_cuda.reset_launches()
+    region_cuda.reset_launches()
     try:
         got, stats, _ = run_mode(main_path["bam"], main_path["fasta"],
                                  main_path["bed"], f"{work}/guided_mesh",
@@ -1138,6 +1276,7 @@ def multi_device(rng, jobs, main_path, work: str) -> dict:
     finally:
         del os.environ["FOCALSV_DP_RT_MS"]
     through_mesh = (align_cuda.launches, align_cuda.traceback_launches)
+    B2_LAUNCHES["target_mode_through_mesh"] = region_cuda.launches
     log(f"[mesh] run_target_mode through the mesh: VCF equal to phase 6's "
         f"device VCF byte for byte: {got == want}; "
         f"{N_REGIONS / stats['wall_s']:.3f} regions/s beside phase 6's "
@@ -1146,7 +1285,8 @@ def multi_device(rng, jobs, main_path, work: str) -> dict:
            "on the mesh that run_target_mode builds itself of every card")
         + f", same run; launches "
         f"B1 {through_mesh[0]} (phase 6's guided run: "
-        f"{main_path['guided_b1']}), B4 {through_mesh[1]}")
+        f"{main_path['guided_b1']}), B4 {through_mesh[1]}, "
+        f"B2 {B2_LAUNCHES['target_mode_through_mesh']}")
     if got != want or stats["n_chunks"] == 0:
         raise AssertionError("the mesh run's VCF differs from phase 6's")
     two_ranks(main_path, work)
@@ -1226,7 +1366,8 @@ def main() -> int:
     log(f"[data] simulated {len(regions)} HiFi regions at {COVERAGE}x in "
         f"{time.perf_counter() - t0:.1f} s")
     jobs = region_tiles(regions[: 2 * len(SIZE_MIX)], n_clr=2)
-    region_step_parity(jobs)
+    b2 = region_step_parity(jobs)
+    b2_cases = region_case_parity()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT,
                                                                    "build"))
@@ -1270,6 +1411,21 @@ def main() -> int:
             # no single PyTorch call computes a banded affine-gap DP or
             # walks its direction bytes
             "library_ms": None})
+    for path in ("golden_cli", "target_mode_guided", "sharded_region_step"):
+        if B2_LAUNCHES.get(path, 0) == 0:
+            raise AssertionError(f"B2 was not launched on the path {path}")
+    hifi = min(b2, key=lambda r: r["L"])    # the HiFi chunk at L 16384
+    kernels.append({
+        "name": "region_step (B2)", "route": "cuda",
+        "source": "focalsv_tpu_torch/csrc/region_step.cu",
+        "replaces": "focalsv_tpu/parallel/region_step.py:657",
+        "launches": sum(B2_LAUNCHES.values()),
+        "launches_by_path": dict(B2_LAUNCHES),
+        "max_abs_err": max(r["max_abs_err"] for r in b2 + b2_cases),
+        "ms": hifi["ms"], "plain_ms": hifi["plain_ms"],
+        "bound_ms": hifi["bound_ms"], "bound_by": hifi["bound_by"],
+        # no single PyTorch call computes the region step
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,12 @@ division, so the results are byte-identical to the reference's and to the
 host implementations -- the contract tests/test_torch_region_step.py
 enforces.
 
+On a card, the delta entry `phase_consensus_delta_flat` is kernel B2, one
+hand-written launch a chunk (csrc/region_step.cu through ops/region_cuda.py);
+the PyTorch body here is its plain version
+(`phase_consensus_delta_flat_plain`), which the CPU runs and the card tests
+hold the kernel to.  The dense entries stay PyTorch on every device.
+
 Transfer format: each chunk arrives as ONE uint8 buffer (parallel/wire.py
 delta_flat_layout / rows_flat_layout) and results leave as one flat uint8
 buffer per region (wire.flat_layout / flat_layout_rle).
@@ -42,6 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from focalsv_tpu_torch.ops import region_cuda
 from focalsv_tpu_torch.parallel.mesh import (PendingResult, host_array,
                                        map_to_host, split_batch)
 # flat_layout, pack_row_tile and unflatten_result live in wire.py (no torch
@@ -578,7 +585,25 @@ def _sections(buf: torch.Tensor, lay: dict):
     return seg
 
 
-def phase_consensus_delta_flat(
+def phase_consensus_delta_flat(buf: torch.Tensor, *, G: int, R: int, L: int,
+                               Ds: int, Dd: int, Drle: int = 0, **kw
+                               ) -> torch.Tensor:
+    """Production entry for DELTA-encoded region chunks: the chunk's one
+    uint8 buffer in (delta_flat_layout), (G, bytes) uint8 out, one flat
+    result per region (flat_layout, or flat_layout_rle when Drle > 0).
+
+    A CUDA buffer goes to kernel B2 (ops/region_cuda.py, one launch a
+    chunk), a CPU buffer to the plain version below.  There is no fallback:
+    a buffer the kernel does not take raises."""
+    kw = _step_kw(kw)
+    if buf.device.type == "cuda":
+        return region_cuda.phase_consensus_delta_flat_cuda(
+            buf, G=G, R=R, L=L, Ds=Ds, Dd=Dd, Drle=Drle, **kw)
+    return phase_consensus_delta_flat_plain(buf, G=G, R=R, L=L, Ds=Ds,
+                                            Dd=Dd, Drle=Drle, **kw)
+
+
+def phase_consensus_delta_flat_plain(
     buf: torch.Tensor,       # (total,) uint8, delta_flat_layout
     *,
     G: int, R: int, L: int, Ds: int, Dd: int,
@@ -593,10 +618,10 @@ def phase_consensus_delta_flat(
     purify_min_pairs: int = 4,
     purify_num: int = 1, purify_den: int = 2,
 ) -> torch.Tensor:
-    """Production entry for DELTA-encoded region chunks: unpacks
-    delta_flat_layout on the buffer's device and returns (G, bytes) uint8,
-    one flat result per region (flat_layout, or flat_layout_rle when
-    Drle > 0)."""
+    """The plain PyTorch version of kernel B2 on any device: unpacks
+    delta_flat_layout on the buffer's device and returns what
+    phase_consensus_delta_flat does.  The CPU path runs it; chip_smoke.py
+    and the card tests run it on the card to hold the kernel to it."""
     seg = _sections(buf, delta_flat_layout(G, R, L, Ds, Dd))
     ref = seg("ref").reshape(G, L)
     ltrue = _u8_to_i32(seg("ltrue"), G)

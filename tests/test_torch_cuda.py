@@ -1,7 +1,7 @@
-"""Tests of the port that need the card: kernels B1 (banded DP) and B4
-(traceback) and the region step on CUDA against their plain versions, the
-mesh-sharded region step and DP against the unsharded ones, byte for byte
-(tolerance 0), and an NCCL group of one.
+"""Tests of the port that need the card: kernels B1 (banded DP), B2 (the
+delta region step) and B4 (traceback) and the region step on CUDA against
+their plain versions, the mesh-sharded region step and DP against the
+unsharded ones, byte for byte (tolerance 0), and an NCCL group of one.
 
 They skip without a CUDA device.  This file imports no jax, so that it runs
 on a machine without it:
@@ -15,7 +15,7 @@ import torch
 
 from focalsv_tpu_torch.ops import align as talign
 from focalsv_tpu_torch.ops import align_cuda
-from focalsv_tpu_torch.testing import dp_cases
+from focalsv_tpu_torch.testing import dp_cases, region_cases
 
 OLC_SCORING = dict(match=2, mismatch=-4, gap_open=-4, gap_extend=-2)
 ALIGNER_SCORING = dict(match=2, mismatch=-8, gap_open=-24, gap_extend=-2)
@@ -335,3 +335,78 @@ def test_nccl_group_of_one_on_card(cuda):
     assert g_flat.shape == (1, flat.size) and g_lens.shape == (1, 5)
     back = gather.decode_records(g_flat[0], g_lens[0])
     assert [r.to_line() for r in back] == [r.to_line() for r in recs]
+
+
+REGION_CASES = sorted(region_cases.CASES)
+
+
+def _region_kernel_vs_plain(cuda, buf, args):
+    """Kernel B2 through the region step's entry on the card, one launch,
+    against the plain version on the card and on the CPU."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
+    dev = torch.from_numpy(buf).to(cuda)
+    before = region_cuda.launches
+    got = rs.phase_consensus_delta_flat(dev, **args)
+    torch.cuda.synchronize()
+    assert region_cuda.launches == before + 1
+    want = rs.phase_consensus_delta_flat_plain(dev, **args)
+    assert torch.equal(got, want)
+    on_cpu = rs.phase_consensus_delta_flat(torch.from_numpy(buf), **args)
+    assert torch.equal(got.cpu(), on_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", REGION_CASES)
+def test_region_kernel_matches_plain_on_card(cuda, name):
+    _region_kernel_vs_plain(cuda, *region_cases.build(name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drle", ["bucket", "dense", "overflow"])
+def test_region_kernel_on_hifi_chunk(cuda, drle):
+    """The chunk of tests/test_torch_region_step.py::test_delta_chunk_hifi
+    (N bases, a region in two blocks, one without het sites, a padded slot)
+    under the RLE layout at its bucket, the dense layout and an RLE budget
+    that overflows."""
+    import dataclasses
+
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.parallel import region_step as rs
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    from focalsv_tpu_torch.testing import simulate as sim
+    cfg = preset("HIFI")
+
+    def region(seed, **kw):
+        args = dict(ref_len=7000, coverage=16, n_snps=8, read_len_mean=3000,
+                    read_len_sd=500, sub_rate=0.001)
+        args.update(kw)
+        return sim.simulate_region(seed=seed, **args)
+
+    rng = np.random.default_rng(1)
+    with_n = region(8002)
+    reads = []
+    for r in with_n.reads:
+        seq = np.array(r.seq, np.uint8)
+        seq[rng.integers(0, len(seq), 6)] = 4
+        reads.append(dataclasses.replace(r, seq=seq))
+    with_n = dataclasses.replace(with_n, reads=reads)
+    blocks = region(8003, ref_len=8000, coverage=20, n_snps=16,
+                    read_len_mean=1500)
+    L = len(blocks.ref)
+    blocks = dataclasses.replace(blocks, reads=[
+        r for r in blocks.reads
+        if r.reference_end < 0.4 * L or r.pos > 0.6 * L])
+    rgs = [region(8000), region(8001), with_n, blocks,
+           region(8004, n_snps=0, svs=[])]
+    tiles = [dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, cfg) for rg in rgs]
+    keys = [dx._bucket_key(t, cfg) for t in tiles]
+    key = ("delta",) + tuple(max(k[i] for k in keys) for i in range(1, 5))
+    G = len(tiles) + 1
+    buf = dx.pack_chunk(tiles + [None], list(range(G)), key, G)
+    _, R, L, Ds, Dd = key
+    args = dict(G=G, R=R, L=L, Ds=Ds, Dd=Dd,
+                Drle={"bucket": dx.drle_of(key), "dense": 0,
+                      "overflow": 2}[drle],
+                **rs.phase_consensus_kwargs(cfg.phasing))
+    _region_kernel_vs_plain(cuda, buf, args)
