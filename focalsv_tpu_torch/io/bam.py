@@ -437,6 +437,12 @@ def reg2bins(beg: int, end: int) -> list[int]:
     return bins
 
 
+SLAB_MAX = 4 << 20      # decompressed bytes the native parser takes at once
+# the slab of fetch: a region's records lie in a few hundred kB of the stream,
+# and a whole-chromosome scan is no slower in slabs of this size
+FETCH_SLAB = 256 << 10
+
+
 class BaiIndex:
     def __init__(self, path: str):
         with open(path, "rb") as f:
@@ -522,21 +528,23 @@ class BamReader:
             self.bai = BaiIndex(bai_path)
         self._rid = {n: i for i, n in enumerate(self.ref_names)}
 
-    def _records_from_stream(self, stream, skip: int = 0, stop=None):
+    def _records_from_stream(self, stream, skip: int = 0, stop=None,
+                             slab: int = SLAB_MAX):
         """Yield records from a decompressed-bytes generator.
 
         Slab-batched through the native parser when available (~8x faster
         than the per-record Python decode; generator semantics -- and thus
         bounded memory + early termination on fetch -- are preserved),
-        falling back to the pure-Python loop otherwise."""
+        falling back to the pure-Python loop otherwise.  ``slab``: the
+        decompressed bytes parsed at a time."""
         from focalsv_tpu_torch import native
         if native.get_parse_lib() is not None:
-            yield from self._records_from_stream_native(stream, skip)
+            yield from self._records_from_stream_native(stream, skip, slab)
             return
         yield from self._records_from_stream_py(stream, skip)
 
     def _records_from_stream_native(self, stream, skip: int = 0,
-                                    slab: int = 4 << 20):
+                                    slab: int = SLAB_MAX):
         from focalsv_tpu_torch import native
         buf = bytearray()
         exhausted = False
@@ -642,29 +650,40 @@ class BamReader:
         return records_from_batch(data, parsed)
 
     def fetch(self, chrom: str, start: int = 0, end: int | None = None):
-        """Yield mapped records overlapping [start, end) on chrom."""
+        """Yield mapped records overlapping [start, end) on chrom.
+
+        With an index: ONE forward scan from the start of the first merged
+        index chunk, to the first record past the region.  In a
+        coordinate-sorted BAM every later chunk starts inside that scan, so
+        a scan restarted there (as focalsv_tpu.io.bam does, once per chunk)
+        finds only records this one has already yielded; the records and
+        their order are the same."""
         rid = self._rid.get(chrom)
         if rid is None:
             return
         if end is None:
             end = self.ref_lens[rid]
         if self.bai is not None:
+            chunks = self.bai.chunks_for(rid, start, end)
+            if not chunks:
+                return
             seen = set()
-            for (voff_beg, _voff_end) in self.bai.chunks_for(rid, start, end):
-                for rec in self._records_from_stream(self.bgzf.stream_from(voff_beg)):
-                    if rec.ref_id != rid:
-                        if rec.ref_id > rid:
-                            break
-                        continue
-                    if rec.pos >= end:
+            stream = self.bgzf.stream_from(chunks[0][0])
+            for rec in self._records_from_stream(
+                    stream, slab=FETCH_SLAB):
+                if rec.ref_id != rid:
+                    if rec.ref_id > rid:
                         break
-                    if rec.reference_end <= start:
-                        continue
-                    key = (rec.name, rec.flag, rec.pos)
-                    if key in seen:
-                        continue
-                    seen.add(key)
-                    yield rec
+                    continue
+                if rec.pos >= end:
+                    break
+                if rec.reference_end <= start:
+                    continue
+                key = (rec.name, rec.flag, rec.pos)
+                if key in seen:
+                    continue
+                seen.add(key)
+                yield rec
             return
         for rec in self:
             if rec.ref_id == rid and rec.pos < end and rec.reference_end > start:

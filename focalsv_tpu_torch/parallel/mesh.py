@@ -88,6 +88,22 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     return Mesh([torch.device("cuda", i) for i in range(n)])
 
 
+def mesh_for(device: torch.device, device_count: int,
+             process_count: int = 1) -> Mesh | None:
+    """The mesh a device-mode run splits its region chunks over, or None.
+
+    Every card, when the run asked for the unnamed ``cuda`` device, is one
+    process and sees more than one card.  A named ``cuda:N``, a rank of a
+    group of several processes, a single card or the CPU get no mesh: the
+    run stays on its own device (ranks that share a host would otherwise
+    each take every card)."""
+    if device.type != "cuda" or device.index is not None:
+        return None
+    if process_count > 1 or device_count < 2:
+        return None
+    return Mesh([torch.device("cuda", i) for i in range(device_count)])
+
+
 def pad_batch_to_devices(arrays: list[np.ndarray], n_devices: int):
     """Pad the leading (batch) axis to a multiple of the mesh size."""
     b = arrays[0].shape[0]

@@ -128,15 +128,17 @@ def _write_device_stats(out_dir: str | None, stats: dict, batcher) -> None:
 
 
 def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
-                        num_workers, failures, timer, mesh=None):
+                        num_workers, failures, timer, mesh=None,
+                        process_count=1):
     """Device-batched region execution: tile -> bucketed device dispatch ->
     host finish (with gap DPs batched onto the device).  See
     pipeline/device_exec.py for the parity contract.  A device failure
     raises: there is no host rerun of the chromosome.
 
-    With more than one card present the chunks are split over a mesh of all
-    of them (``mesh``: the caller's own, e.g. logical shards of one card);
-    the DP batcher stays on the first device."""
+    A single process on the unnamed ``cuda`` device with more than one card
+    present splits the chunks over a mesh of all of them
+    (parallel/mesh.py::mesh_for; ``mesh``: the caller's own, e.g. logical
+    shards of one card); the DP batcher stays on the first device."""
     import contextlib
 
     from concurrent.futures import ThreadPoolExecutor
@@ -180,9 +182,9 @@ def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
         device = resolve_device()
         if device.type == "cuda":
             import torch
-            if torch.cuda.device_count() > 1:
-                from focalsv_tpu_torch.parallel.mesh import make_mesh
-                mesh = make_mesh()
+
+            from focalsv_tpu_torch.parallel.mesh import mesh_for
+            mesh = mesh_for(device, torch.cuda.device_count(), process_count)
     batch_ctx = contextlib.nullcontext()
     if _dp_batching_enabled(cfg, device):
         from focalsv_tpu_torch.parallel.batch_executor import dp_batching
@@ -209,6 +211,7 @@ def process_chromosome(
     refine: bool = True,
     num_workers: int = 4,
     mesh=None,
+    process_count: int = 1,
 ) -> ChromosomeResult:
     """All regions of one chromosome -> refined chromosome VCF records.
 
@@ -221,7 +224,9 @@ def process_chromosome(
       joblib.Parallel analog; also the fallback inside device mode).
 
     ``mesh`` (device mode): the parallel/mesh.py mesh the region chunks are
-    split over; by default all the cards present.
+    split over; by default parallel/mesh.py::mesh_for decides, from the
+    device asked for, the cards present and ``process_count`` (the processes
+    of the run).
     """
     from focalsv_tpu_torch.utils.profiling import StageTimer
     timer = StageTimer()
@@ -260,7 +265,8 @@ def process_chromosome(
     if cfg.execution.mode == "device":
         results = _run_regions_device(bam, fasta, chrom, regions, cfg,
                                       out_dir, chrom_len, num_workers,
-                                      failures, timer, mesh=mesh)
+                                      failures, timer, mesh=mesh,
+                                      process_count=process_count)
     elif num_workers > 1 and len(regions) > 1:
         from concurrent.futures import ThreadPoolExecutor
         with timer.stage("regions_host"), \
@@ -399,7 +405,7 @@ def run_target_mode(
             continue
         cres = process_chromosome(bam, fasta, c, regs, cfg, out_dir=cdir,
                                   refine=refine, num_workers=num_workers,
-                                  mesh=mesh)
+                                  mesh=mesh, process_count=process_count)
         write_vcf(vcf_path, cres.records,
                   contigs={c: fasta.lengths()[c]} if c in fasta.seqs else None)
         chrom_vcfs.append(vcf_path)

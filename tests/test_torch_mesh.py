@@ -5,6 +5,8 @@ scores, direction bytes and candidate counts are integers.  The port's
 meshes here are logical shards of the CPU; on CPU tensors its DP is the
 plain version of kernel B1."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -139,3 +141,46 @@ def test_entry_point_matches_jax():
 def test_dryrun_multichip(devices, capsys):
     dryrun.dryrun_multichip(2, devices=devices)
     assert "dryrun sharded dispatch" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("device,count,procs,shards", [
+    ("cuda", 4, 1, 4),         # one process on the unnamed card: every card
+    ("cuda", 2, 1, 2),
+    ("cuda:1", 4, 1, 0),       # a named card stays on its card
+    ("cuda:0", 2, 1, 0),
+    ("cuda", 4, 2, 0),         # a rank of a group of two stays on its card
+    ("cuda", 1, 1, 0),         # one card: no mesh
+    ("cpu", 4, 1, 0),
+])
+def test_mesh_for_follows_the_device_asked_for(device, count, procs, shards):
+    mesh = tmesh.mesh_for(torch.device(device), count, procs)
+    if shards == 0:
+        assert mesh is None
+    else:
+        assert mesh.devices == tuple(torch.device("cuda", i)
+                                     for i in range(shards))
+
+
+def test_process_chromosome_hands_its_process_count_to_the_mesh_choice(
+        monkeypatch):
+    """run_target_mode's process_count reaches the mesh choice of device
+    mode: a rank of a group of two asks mesh_for with 2."""
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.io.fasta import FastaFile
+    from focalsv_tpu_torch.pipeline import main
+    from focalsv_tpu_torch.io.bed import Region
+    seen = []
+
+    def run_regions(*args, mesh=None, process_count=1):
+        seen.append((mesh, process_count))
+        return []
+
+    monkeypatch.setattr(main, "_run_regions_device", run_regions)
+    fasta = FastaFile.load(str(Path(__file__).resolve().parent / "data" /
+                               "golden" / "hifi" / "ref.fa"))
+    cfg = preset("HIFI")
+    for procs in (1, 2):
+        main.process_chromosome(None, fasta, "chr21",
+                                [Region("chr21", 10000, 26000)], cfg,
+                                refine=False, process_count=procs)
+    assert seen == [(None, 1), (None, 2)]

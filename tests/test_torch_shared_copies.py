@@ -26,7 +26,7 @@ VERBATIM = [
     "utils/logging.py", "utils/coverage.py",
     "ops/encode.py", "ops/minimizer.py", "ops/chain.py",
     "native/bamparse.cpp", "native/bamscan.cpp", "native/chain.cpp",
-    "io/__init__.py", "io/bam.py", "io/bed.py", "io/fasta.py", "io/sam.py",
+    "io/__init__.py", "io/bed.py", "io/fasta.py", "io/sam.py",
     "io/vcf.py", "parallel/wire.py",
     "signatures/__init__.py", "signatures/sigs.py", "signatures/reads.py",
     "signatures/contig.py", "phasing/__init__.py", "phasing/phase.py",
@@ -56,6 +56,7 @@ DIFFERENT = {
     "testing/dist_worker.py": "joins a torch.distributed group instead of "
                               "jax.distributed, with --backend and --device, "
                               "and leaves it before it returns",
+    "io/bam.py": "fetch scans once from the first index chunk",
 }
 
 # functions of forked modules that stay the reference's own lines
@@ -226,3 +227,109 @@ def test_native_build_tile_delta_equal():
                                           err_msg=name)
             compared += 1
     assert compared >= 3
+
+
+# -- io/bam.py: fetch scans once; the records and their order are the
+# reference's ---------------------------------------------------------------
+
+GOLDEN = ROOT / "tests" / "data" / "golden"
+
+
+def _record_key(rec):
+    return (rec.name, rec.flag, rec.ref_id, rec.pos, rec.mapq,
+            rec.cigar.tobytes(), rec.seq.tobytes(), rec.qual.tobytes(),
+            sorted(rec.tags.items()))
+
+
+def _same_fetch(path, queries):
+    """The port's fetch against the reference's, record for record and in
+    order, on each query; returns the records the queries found."""
+    from focalsv_tpu.io import bam as jbam
+    from focalsv_tpu_torch.io import bam as tbam
+    jr, tr = jbam.BamReader(str(path)), tbam.BamReader(str(path))
+    assert jr.bai is not None and tr.bai is not None
+    found = 0
+    for q in queries:
+        want = [_record_key(r) for r in jr.fetch(*q)]
+        got = [_record_key(r) for r in tr.fetch(*q)]
+        assert got == want, q
+        found += len(got)
+    return found
+
+
+@pytest.mark.parametrize("dtype", ["hifi", "clr", "ont"])
+def test_fetch_equals_reference_on_golden_bams(dtype):
+    d = GOLDEN / dtype
+    beds = [ln.split("\t") for ln in (d / "regions.bed").read_text()
+            .splitlines()]
+    queries = [(c, int(a), int(b)) for c, a, b in beds]
+    queries += [("chr21", 0, 150000), ("chr21", 0, 10), ("chr21", 149990,
+                                                         150000),
+                ("chr21", 15000, 50000), ("chr21",), ("chrX", 0, 1000)]
+    assert _same_fetch(d / "reads.bam", queries) > 0
+
+
+@pytest.fixture(scope="module")
+def chromosome_bam(tmp_path_factory):
+    """Simulated regions laid end to end on two references, as
+    chip_smoke.py::write_chromosome lays them on one: chr21 holds four
+    regions after 20 kb without reads, chr22 two."""
+    import dataclasses
+
+    from focalsv_tpu_torch.io import bam as tbam
+    from focalsv_tpu_torch.testing import simulate as sim
+    path = tmp_path_factory.mktemp("chrom") / "reads.bam"
+    recs, lens = [], []
+    for rid, sizes in enumerate(((15000, 30000, 15000, 20000),
+                                 (15000, 20000))):
+        off = 20000 if rid == 0 else 0
+        for i, size in enumerate(sizes):
+            rg = sim.simulate_region(seed=300 + 10 * rid + i, ref_len=size,
+                                     coverage=8.0, n_snps=4)
+            recs += [dataclasses.replace(r, ref_id=rid, pos=r.pos + off)
+                     for r in rg.reads]
+            off += size
+        lens.append(off)
+    recs.sort(key=lambda r: (r.ref_id, r.pos))
+    w = tbam.BamWriter(str(path), ["chr21", "chr22"], lens)
+    for r in recs:
+        w.write(r)
+    w.close()
+    tbam.build_bai(str(path))
+    return path
+
+
+CHROM_QUERIES = {
+    "before_first_read": [("chr21", 0, 20000), ("chr21", 0, 1)],
+    "chromosome_end": [("chr21", 99000, 100000), ("chr21", 99999, 100000),
+                       ("chr22", 34000, 35000)],
+    "across_16kb_windows": [("chr21", 15000, 50000), ("chr21", 32767, 32769),
+                            ("chr21", 40000, 90000)],
+    "second_reference": [("chr22", 0, 35000), ("chr22", 14000, 16000),
+                         ("chr22",)],
+    "regions": [("chr21", 20100, 34900), ("chr21", 35100, 64900),
+                ("chr21", 65100, 79900), ("chr21", 80100, 99900)],
+    "whole_and_absent": [("chr21",), ("chr21", 0, 100000), ("chr3", 0, 10),
+                         ("chr21", 50000, 50000)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHROM_QUERIES))
+def test_fetch_equals_reference_on_chromosome_bam(chromosome_bam, name):
+    found = _same_fetch(chromosome_bam, CHROM_QUERIES[name])
+    assert (found == 0) == (name == "before_first_read")
+
+
+def test_fetch_reads_one_scan(monkeypatch):
+    """A region query opens one stream, at the first index chunk."""
+    from focalsv_tpu_torch.io import bam as tbam
+    d = GOLDEN / "hifi"
+    rd = tbam.BamReader(str(d / "reads.bam"))
+    chunks = rd.bai.chunks_for(0, 34000, 48000)
+    assert len(chunks) > 1
+    opened = []
+    real = rd.bgzf.stream_from
+    monkeypatch.setattr(rd.bgzf, "stream_from",
+                        lambda voff: opened.append(voff) or real(voff))
+    assert list(rd.fetch("chr21", 34000, 48000))
+    assert opened == [chunks[0][0]]
