@@ -26,14 +26,18 @@ on the card in phases, and exits non-zero at the first phase that fails:
    byte: HiFi 30x delta chunks at 15-100 kb and one noisy CLR dense chunk;
    at every delta chunk and every case of testing/region_cases.py, B2
    against its plain version on the card and on the CPU, byte for byte,
-   and both timed on the card in turns;
+   and both timed on the card in turns, with B2's launch (CTAs a region,
+   shared memory) beside its time; two dispatches of each delta chunk split
+   into pinning, copy in, kernel and copy out;
 5. the golden HIFI fixture through the port's CLI in device mode, equal to
    tests/data/golden/hifi/expected.vcf byte for byte;
 6. 32 simulated HiFi regions (15-100 kb at 30x) as BAM + FASTA + BED through
    run_target_mode: guided consensus on all of them and OLC assembly on 4,
    in device mode with every DP job sent to the device batch, and in host
    mode; each device VCF must equal its host VCF, and both kernels must
-   have been launched;
+   have been launched; regions/s beside tile_build_s in each mode, and the
+   BAM fetch of the 32 regions by one scan against a scan restarted at
+   every index chunk (records equal in order);
 7. the same 32 regions as per-region BAM and reference files through the
    multi-process executor (pipeline/mp_exec.py) with 8 children, two passes
    on the warm executor: records equal to the in-process build_tile ->
@@ -119,6 +123,35 @@ B2_OPS_PER_ENTRY = 10
 # kernel B2's launches on each path that runs the region step, each read
 # from its count, set to 0 just before the path
 B2_LAUNCHES: dict = {}
+# calls of the dense region step (B3, still PyTorch tensor code) on the same
+# paths, counted the same way
+B3_CALLS: dict = {}
+_B3 = {"calls": 0}
+
+
+def count_b3() -> None:
+    """Count the calls of the dense region step from here on."""
+    from focalsv_tpu_torch.parallel import region_step as rs
+    real = rs.phase_consensus_rows_flat
+
+    def counted(*args, **kw):
+        _B3["calls"] += 1
+        return real(*args, **kw)
+    rs.phase_consensus_rows_flat = counted
+
+
+def reset_counts() -> None:
+    """B2's launch count and B3's call count to 0, just before a path."""
+    from focalsv_tpu_torch.ops import region_cuda
+    region_cuda.reset_launches()
+    _B3["calls"] = 0
+
+
+def record_counts(path: str) -> None:
+    """B2's launches and B3's calls on the path just driven."""
+    from focalsv_tpu_torch.ops import region_cuda
+    B2_LAUNCHES[path] = region_cuda.launches
+    B3_CALLS[path] = _B3["calls"]
 
 
 def log(msg: str) -> None:
@@ -454,6 +487,27 @@ def b2_bound(dev_buf, out, kw) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
+def b3_bound(dev_buf, out, kw) -> tuple[float, str]:
+    """The least time of the dense region step (B3, still PyTorch) for one
+    chunk, by b2_bound's count: its bytes over the memory rate against
+    B2_OPS_PER_COLUMN operations a column and B2_OPS_PER_ENTRY a (read, site)
+    entry of each MEC round the data needs, over the int32 rate."""
+    from focalsv_tpu_torch.parallel import region_step as rs
+    n_sites = out[:, :4].contiguous().view(torch.int32).reshape(-1).long()
+    rounds = kw["mec_iters"]
+    for k in range(kw["mec_iters"]):
+        if torch.equal(rs.phase_consensus_rows_flat(
+                dev_buf, **dict(kw, mec_iters=k)), out):
+            rounds = k
+            break
+    entries = int(n_sites.sum()) * kw["R"] * (rounds + 1)
+    ops = (kw["G"] * kw["L"] * B2_OPS_PER_COLUMN
+           + entries * B2_OPS_PER_ENTRY)
+    t_bytes = (dev_buf.numel() + out.numel()) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
 def region_step_parity(jobs):
     """The port's region step on the card vs on the CPU, byte for byte, at
     production chunk sizes; at every delta chunk also kernel B2 against its
@@ -463,10 +517,10 @@ def region_step_parity(jobs):
     from focalsv_tpu_torch.pipeline import device_exec as dx
     chunks = list(region_chunks(jobs, 1))
     # the path: every chunk through dispatch_packed once, counts from 0
-    region_cuda.reset_launches()
+    reset_counts()
     firsts = [np.asarray(dx.dispatch_packed(buf, key, G, cfg, DEVICE))
               for cfg, key, G, _n, buf in chunks]
-    B2_LAUNCHES["region_step_chunks"] = region_cuda.launches
+    record_counts("region_step_chunks")
     n_delta = sum(key[0] == "delta" for _c, key, *_ in chunks)
     log(f"[region_step] B2 launches on {len(chunks)} chunks through "
         f"dispatch_packed: {region_cuda.launches} ({n_delta} delta chunks)")
@@ -475,6 +529,13 @@ def region_step_parity(jobs):
     rows = []
     profiled = set()
     for (cfg, key, G, n_real, buf), got in zip(chunks, firsts):
+        if key[0] == "delta":
+            # the chunk's next two dispatches in parts: where the time of a
+            # dispatch goes
+            for turn in (2, 3):
+                part = dispatch_split(buf, key, G, cfg)
+                log(f"[dispatch] {key} G={G} dispatch {turn}: " + " ".join(
+                    f"{k}={v:.3f}" for k, v in part.items()))
         ms = time_ms(lambda: dx.dispatch_packed(buf, key, G, cfg, DEVICE)
                      .host, 2)
         t0 = time.perf_counter()
@@ -491,10 +552,50 @@ def region_step_parity(jobs):
         if key[0] == "delta":
             rows.append(b2_against_plain(str(key), buf, delta_kwargs(
                 key, G, cfg), want))
+        else:
+            _, R, L, W = key
+            kw = dict(rs.phase_consensus_kwargs(cfg.phasing), G=G, R=R,
+                      L=L, W=W)
+            dev = torch.from_numpy(buf).to(DEVICE)
+            bound, by = b3_bound(dev, rs.phase_consensus_rows_flat(dev, **kw),
+                                 kw)
+            log(f"[b3] {key} G={G}: the dense step (PyTorch) {ms:.2f} ms a "
+                f"chunk by dispatch, bound_ms={bound:.4f} bound_by={by}")
         if key[0] not in profiled:           # one delta and one rows chunk
             profiled.add(key[0])
             profile_chunk(buf, key, G, cfg)
     return rows
+
+
+def dispatch_split(buf, key, G, cfg) -> dict:
+    """One delta chunk's dispatch as dispatch_packed issues it, in parts:
+    pinning the host buffer (host clock), the copy in, the kernel and the
+    copy out (CUDA events), and the whole until the result is on the host
+    (host clock)."""
+    from focalsv_tpu_torch.parallel import region_step as rs
+    kw = delta_kwargs(key, G, cfg)
+    if DEVICE.type != "cuda":            # a CPU rehearsal of the script
+        t0 = time.perf_counter()
+        rs.phase_consensus_delta_flat(torch.from_numpy(buf), **kw)
+        return dict(wall_ms=(time.perf_counter() - t0) * 1e3)
+    sync()
+    t0 = time.perf_counter()
+    src = torch.from_numpy(buf).pin_memory()
+    t1 = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    dev = src.to(DEVICE, non_blocking=True)
+    ev[1].record()
+    res = rs.phase_consensus_delta_flat(dev, **kw)
+    ev[2].record()
+    host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+    host.copy_(res, non_blocking=True)
+    ev[3].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return dict(pin_ms=(t1 - t0) * 1e3, copy_in_ms=ev[0].elapsed_time(ev[1]),
+                kernel_ms=ev[1].elapsed_time(ev[2]),
+                copy_out_ms=ev[2].elapsed_time(ev[3]), wall_ms=wall)
 
 
 def b2_against_plain(case, buf, kw, cpu_out=None) -> dict:
@@ -520,18 +621,32 @@ def b2_against_plain(case, buf, kw, cpu_out=None) -> dict:
     host = out.cpu().numpy()
     err = int(np.abs(host.astype(np.int16) - cpu_out.astype(np.int16)).max())
     err = max(err, int((out.int() - on_card.int()).abs().max()))
-    k1, p1 = time_ms(kernel, 5), time_ms(plain, 2)
-    p2, k2 = time_ms(plain, 2), time_ms(kernel, 5)
+    k1, p1 = time_ms(kernel, 20), time_ms(plain, 2)
+    p2, k2 = time_ms(plain, 2), time_ms(kernel, 20)
     bound, by = b2_bound(dev, out, kw)
+    plan = b2_plan(kw)
     row = dict(case=case, L=kw["L"], max_abs_err=err, ms=(k1 + k2) / 2,
-               plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by)
+               plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by, **plan)
     log(f"[b2] {case}: G={kw['G']} R={kw['R']} L={kw['L']} "
         f"Drle={kw['Drle']} S={kw['max_sites']} max_abs_err={err} (card "
-        f"plain and CPU) kernel_ms={k1:.3f},{k2:.3f} "
-        f"plain_ms={p1:.2f},{p2:.2f} bound_ms={bound:.4f} bound_by={by}")
+        f"plain and CPU) kernel_ms={k1:.4f},{k2:.4f} "
+        f"plain_ms={p1:.2f},{p2:.2f} bound_ms={bound:.4f} bound_by={by} "
+        f"share_of_bound={bound / ((k1 + k2) / 2):.3f} "
+        + " ".join(f"{k}={v}" for k, v in plan.items()))
     if err != 0:
         raise AssertionError(f"B2 differs from its plain version ({case})")
     return row
+
+
+def b2_plan(kw) -> dict:
+    """How B2 launches this chunk: CTAs a region, shared memory a CTA, and
+    whether the planes and the events live in shared memory."""
+    if DEVICE.type != "cuda":            # a CPU rehearsal of the script
+        return {}
+    from focalsv_tpu_torch.ops import region_cuda
+    return region_cuda.launch_plan(
+        **{k: kw[k] for k in ("G", "R", "L", "Ds", "Dd", "Drle")},
+        S=kw["max_sites"])
 
 
 def region_case_parity() -> list[dict]:
@@ -579,17 +694,16 @@ def profile_chunk(buf, key, G, cfg, top: int = 10) -> None:
 # -- phase 5 ----------------------------------------------------------------
 
 def golden(work: str) -> None:
-    from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.pipeline import cli
     d = os.path.join(ROOT, "tests", "data", "golden", "hifi")
     out = os.path.join(work, "golden")
     t0 = time.perf_counter()
-    region_cuda.reset_launches()
+    reset_counts()
     rc = cli.main(["--bam_file", f"{d}/reads.bam", "--ref_file",
                    f"{d}/ref.fa", "--target_bed", f"{d}/regions.bed",
                    "--out_dir", out, "--data_type", "HIFI",
                    "--num_threads", "4", "--execution", "device"])
-    B2_LAUNCHES["golden_cli"] = region_cuda.launches
+    record_counts("golden_cli")
     with open(os.path.join(out, "FocalSV_Final_SV.vcf")) as f:
         got = f.read()
     with open(os.path.join(d, "expected.vcf")) as f:
@@ -651,6 +765,7 @@ def run_mode(bam, fa, bed, out, method, mode, n, mesh=None):
     with open(os.path.join(out, "chr21", "log", "stage_times.json")) as f:
         stages = {k: v["seconds"] for k, v in json.load(f).items()}
     stats["wall_s"] = secs
+    stats["stages"] = stages
     if mode == "device":
         stages.update({k: round(stats[k], 3) for k in (
             "tile_build_s", "device_wait_s", "finish_s", "device_busy_s")})
@@ -673,18 +788,18 @@ def run_mode(bam, fa, bed, out, method, mode, n, mesh=None):
 def slice_run(regions, work: str):
     """Device runs (the main path, with the launch counts) then host runs;
     each device VCF must equal its host VCF."""
-    from focalsv_tpu_torch.ops import align_cuda, region_cuda
+    from focalsv_tpu_torch.ops import align_cuda
     bam, fa, beds = write_chromosome(regions, work)
     n_all, n_olc = len(regions), N_OLC_REGIONS
     os.environ["FOCALSV_DP_RT_MS"] = "0"    # every DP job to the device batch
     align_cuda.reset_launches()
-    region_cuda.reset_launches()
+    reset_counts()
     g_dev, g_stats, g_rec = run_mode(bam, fa, beds[n_all],
                                      f"{work}/guided_device", "guided",
                                      "device", n_all)
     launches_guided = align_cuda.launches
-    B2_LAUNCHES["target_mode_guided"] = region_cuda.launches
-    region_cuda.reset_launches()
+    record_counts("target_mode_guided")
+    reset_counts()
     inputs = dict(fasta=fa, bam=bam, bed=beds[n_all],
                   guided_vcf=f"{work}/guided_device/FocalSV_Final_SV.vcf",
                   guided_rps=n_all / g_stats["wall_s"],
@@ -694,7 +809,7 @@ def slice_run(regions, work: str):
                                      n_olc)
     launches = align_cuda.launches
     tb_launches = align_cuda.traceback_launches
-    B2_LAUNCHES["target_mode_olc"] = region_cuda.launches
+    record_counts("target_mode_olc")
     log(f"[slice] launches on the main path: B1 {launches} "
         f"(guided {launches_guided}, olc {launches - launches_guided}), "
         f"B4 {tb_launches}, B2 guided {B2_LAUNCHES['target_mode_guided']} "
@@ -705,10 +820,29 @@ def slice_run(regions, work: str):
         f"the card, {(o_stats.get('dp_dirs_bytes_on_device', 0) + 4 * jobs) / jobs:.0f} "
         f"if the direction bytes crossed as before")
     del os.environ["FOCALSV_DP_RT_MS"]
-    g_host, _, _ = run_mode(bam, fa, beds[n_all], f"{work}/guided_host",
-                            "guided", "host", n_all)
-    o_host, _, _ = run_mode(bam, fa, beds[n_olc], f"{work}/olc_host", "olc",
-                            "host", n_olc)
+    g_host, gh_stats, _ = run_mode(bam, fa, beds[n_all],
+                                   f"{work}/guided_host", "guided", "host",
+                                   n_all)
+    o_host, oh_stats, _ = run_mode(bam, fa, beds[n_olc], f"{work}/olc_host",
+                                   "olc", "host", n_olc)
+    for method, n, dev, host in (("guided", n_all, g_stats, gh_stats),
+                                 ("olc", n_olc, o_stats, oh_stats)):
+        log(f"[slice] {method}: device {n / dev['wall_s']:.3f} regions/s "
+            f"tile_build_s={dev['tile_build_s']:.3f} "
+            f"device_busy_s={dev['device_busy_s']:.3f}; host "
+            f"{n / host['wall_s']:.3f} regions/s regions_host_s="
+            f"{host['stages'].get('regions_host', 0.0):.3f}")
+    # the BAM fetch of the 32 regions, one thread: the scan from the first
+    # index chunk against the scan restarted at every chunk (before PR 6)
+    from focalsv_tpu_torch.testing import fetch_timing
+    with open(beds[n_all]) as f:
+        queries = [(c, int(a), int(b)) for c, a, b in
+                   (ln.split("\t") for ln in f.read().splitlines())]
+    fetched = fetch_timing.time_fetches(bam, queries, reps=1)
+    log(f"[slice] fetch of {len(queries)} regions: one scan "
+        f"{fetched['one_scan_s']:.3f} s, a scan a chunk "
+        f"{fetched['per_chunk_s']:.3f} s, {fetched['records']} records, "
+        f"same: {fetched['same']}")
     checks = {
         "guided device VCF == host VCF": g_dev == g_host,
         "olc device VCF == host VCF": o_dev == o_host,
@@ -719,6 +853,7 @@ def slice_run(regions, work: str):
         "B1 launches > 0 (olc)": launches - launches_guided > 0,
         "B4 launches > 0 (olc)": tb_launches > 0,
         "B2 launches > 0 (guided)": B2_LAUNCHES["target_mode_guided"] > 0,
+        "fetch: one scan == a scan a chunk": fetched["same"],
     }
     for name, ok in checks.items():
         log(f"[slice] check {name}: {ok}")
@@ -754,7 +889,7 @@ def mp_executor(regions, work: str, threaded_rps: float) -> None:
         np.save(ref, rg.ref)
         jobs.append((bam, ref, rg.chrom))
     t1 = time.perf_counter()
-    region_cuda.reset_launches()
+    reset_counts()
     want = []
     for bam, ref, chrom in jobs:
         tile = dx.build_tile(list(BamReader(bam)), np.load(ref), 0, chrom,
@@ -795,7 +930,7 @@ def mp_executor(regions, work: str, threaded_rps: float) -> None:
                                      "CUDA")
             if stats["n_chunks"] == 0:
                 raise AssertionError("no chunk reached the region step")
-    B2_LAUNCHES["mp_executor_parent"] = region_cuda.launches
+    record_counts("mp_executor_parent")
     log(f"[mp] B2 launches in the parent (in-process path and both "
         f"passes): {region_cuda.launches}")
     if any(p.is_alive() for p in ex.procs):
@@ -1025,10 +1160,10 @@ def sharded_region_steps(jobs, mesh) -> None:
     from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.pipeline import device_exec as dx
     chunks = list(region_chunks(jobs, mesh.size))
-    region_cuda.reset_launches()
+    reset_counts()
     firsts = [np.asarray(dx.dispatch_packed(buf, key, G, cfg, None, mesh))
               for cfg, key, G, _n, buf in chunks]
-    B2_LAUNCHES["sharded_region_step"] = region_cuda.launches
+    record_counts("sharded_region_step")
     n_delta = sum(key[0] == "delta" for _c, key, *_ in chunks)
     log(f"[mesh] B2 launches on one sharded pass over {len(chunks)} chunks: "
         f"{region_cuda.launches} ({n_delta} delta chunks x {mesh.size} "
@@ -1260,7 +1395,7 @@ def multi_device(rng, jobs, main_path, work: str) -> dict:
     """Phase 11; returns the (B1, B4) launches of its two paths in this
     process: the sharded DP with the dry run, and run_target_mode through
     the mesh.  (The two ranks launch in processes of their own.)"""
-    from focalsv_tpu_torch.ops import align_cuda, region_cuda
+    from focalsv_tpu_torch.ops import align_cuda
     mesh = smoke_mesh()
     sharded_region_steps(jobs, mesh)
     dp = sharded_dp(rng, mesh)
@@ -1268,7 +1403,7 @@ def multi_device(rng, jobs, main_path, work: str) -> dict:
         want = f.read()
     os.environ["FOCALSV_DP_RT_MS"] = "0"    # as phase 6's guided run had it
     align_cuda.reset_launches()
-    region_cuda.reset_launches()
+    reset_counts()
     try:
         got, stats, _ = run_mode(main_path["bam"], main_path["fasta"],
                                  main_path["bed"], f"{work}/guided_mesh",
@@ -1276,7 +1411,7 @@ def multi_device(rng, jobs, main_path, work: str) -> dict:
     finally:
         del os.environ["FOCALSV_DP_RT_MS"]
     through_mesh = (align_cuda.launches, align_cuda.traceback_launches)
-    B2_LAUNCHES["target_mode_through_mesh"] = region_cuda.launches
+    record_counts("target_mode_through_mesh")
     log(f"[mesh] run_target_mode through the mesh: VCF equal to phase 6's "
         f"device VCF byte for byte: {got == want}; "
         f"{N_REGIONS / stats['wall_s']:.3f} regions/s beside phase 6's "
@@ -1358,6 +1493,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     host_libraries()
     build_kernels()
+    count_b3()
     rng = np.random.default_rng(0)
     b1, b4 = kernel_parity(rng, B1_CASES)
     b4.append(dict(case="crafted_walks", max_abs_err=walk_parity()))
@@ -1425,7 +1561,11 @@ def main() -> int:
         "ms": hifi["ms"], "plain_ms": hifi["plain_ms"],
         "bound_ms": hifi["bound_ms"], "bound_by": hifi["bound_by"],
         # no single PyTorch call computes the region step
-        "library_ms": None})
+        "library_ms": None,
+        "cluster": hifi.get("cluster"), "smem_bytes": hifi.get("smem_bytes"),
+        "ms_by_chunk": {f"L{r['L']}": r["ms"] for r in b2},
+        "bound_ms_by_chunk": {f"L{r['L']}": r["bound_ms"] for r in b2}})
+    log(f"[b3] calls of the dense region step by path: {B3_CALLS}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

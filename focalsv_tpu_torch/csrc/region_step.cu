@@ -11,42 +11,61 @@
 //
 // What bounds it on an H100: neither.  A HiFi chunk (G 64, R 64, L 16384)
 // reads G * (L + 9R + 9Ds + 12Dd + 4) = 2.46 MB and writes 0.42 MB, under
-// 1 us at 3.35 TB/s; its work is at most about 0.8 G int32 operations (all
-// 31 MEC rounds over (R, S) and some 100 operations a column), about 0.05
-// ms at the 16.75 T int32 operations a second of the card, and less where
-// the MEC stops early (PERF.md counts what each chunk's data needs).  The plain version takes
-// some 1,900 launches a chunk; this kernel takes one.
+// 1 us at 3.35 TB/s; its work is some 100 int32 operations a column and 10
+// a (read, site) entry of each MEC round the data needs, about 0.006 ms at
+// the 16.75 T int32 operations a second of the card (PERF.md counts what
+// each chunk's data needs).  What it does take is latency: a chain of
+// barriers per tile of columns, and MEC rounds that each wait on the last.
 //
-// Design: one CTA of 512 threads a region, a grid of G.  Per region:
-//  1. Column sweep.  Columns are swept in tiles of 4 * 512 in shared
-//     memory.  Each tile is rebuilt from the region's event lists (read
-//     spans, deletion runs, substitutions: 2R + Dd * 2 + Ds events) by
-//     shared atomics into difference arrays, and a block scan with a carry
-//     from tile to tile gives the coverage and deletion counts.  No (G, L)
-//     array goes to device memory.  Het columns update their strip's best
-//     by one 64-bit atomicMax on a key (balance bits, ~column, a0, a1), so
-//     the highest balance and, among equal balances, the lowest column win;
-//     the key also carries the two alleles of the winning column.
-//  2. Compaction of the selected strips by a prefix count (the plain
+// Design: a cluster of nc CTAs of 512 threads a region (nc 1, 2 or 4,
+// chosen from the chunk's size and the card's SM count), a grid of G * nc.
+// Per region:
+//  0. Events binned by tile.  A read's span start and end, a deletion run's
+//     start and end and a substitution are each one 32-bit event (the read,
+//     the kind, the column within its tile of 4096).  Each CTA takes a
+//     contiguous range of tiles; a counting sort (a histogram over its
+//     tiles, a scan, a scatter) puts each event of its range into its
+//     tile's bucket, in shared memory where it fits, else in the wrapper's
+//     scratch.  The events before the range give the CTA its starting span
+//     and deletion counts, so no CTA waits on another's sweep.
+//  1. Column sweep for the sites.  A tile's events go by shared atomics into
+//     difference arrays (span, deletion, 5 substitution rows); each thread
+//     reads and clears its 8 columns, one block scan of the (span,
+//     deletion) pair gives the counts, then the het test.  Het columns
+//     update their strip's best by one 64-bit atomicMax on a key (balance
+//     bits, ~column, a0, a1) in the CTA's shared memory, so the highest
+//     balance and, among equal balances, the lowest column win; the key
+//     also carries the two alleles of the winning column.  After the sweep
+//     the leader CTA takes the largest key of each strip over the cluster
+//     (distributed shared memory).  Three barriers a tile.
+//  2. The leader CTA alone, the others waiting at a cluster barrier:
+//     compaction of the selected strips by a prefix count (the plain
 //     version's stable argsort).
 //  3. The allele matrix A as two bitplanes of S rows (sites) by R bits
 //     (reads): "covered" and "minor".  A row is seeded from the reference
 //     base and the read spans (a ballot a word), then substitutions and
 //     deletion runs rewrite their reads' bits (a binary search of the
 //     site columns, which are in ascending order).  Deletion runs come
-//     after substitutions: DEL wins.  The planes live in shared memory
-//     when they fit (3 * S * R / 8 bytes with the block masks below: 192 KB
-//     at R 1024 and S 512) and else in the wrapper's scratch, 3 * S *
-//     ceil(R / 32) words a region.
+//     after substitutions: DEL wins.  The planes share shared memory with
+//     the sweeps' difference arrays when they fit (3 * S * R / 8 bytes with
+//     the block masks below: 192 KB at R 1024 and S 512) and else live in
+//     the wrapper's scratch, 3 * S * ceil(R / 32) words a region.
 //  4. Purification over popcounts of plane pairs; a second compaction
 //     (passed sites, then the sites that failed, then the empty slots, each
 //     in slot order) reorders the rows.
 //  5. Blocks (a scan of the links), the parity initialisation (a scan of
-//     the flips) and the MEC rounds.
-//  6. Read assignment, site summaries, then the two votes: a second and a
-//     third sweep over the column tiles with each haplotype's use-mask,
-//     which write the consensus tracks as they go (RLE runs from a running
-//     boundary count, or the dense nibbles and coverage bits).
+//     the flips) and the MEC rounds; read assignment and site summaries.
+//  6. One vote sweep for both haplotypes, every CTA on its range again.
+//     Each read's class (hp 0 votes in both, hp 1 in the first, hp 2 in
+//     the second, an invalid read in none) weights its events by 1, 65536
+//     or 65537: every difference array holds the two haplotypes' counts as
+//     the two 16-bit halves of one int32 (R < 32768), so one pass and one
+//     scan of a packed pair serve both tracks.  The tracks are written as
+//     the sweep goes: RLE runs from a running boundary count, or the dense
+//     nibbles and coverage bits.  Four barriers a tile.  Across the
+//     cluster, each CTA knows the state of the column before its range from
+//     its own event pass, stages its runs, and the run indices are offset
+//     by the boundary and deviation counts of the CTAs before it.
 //
 // Reformulations of the plain version, each exact:
 //  - Block-constant assignment.  The plain version's bsum makes agree and
@@ -59,42 +78,69 @@
 //  - Tile sweeps in place of cumsum, scatter-add and searchsorted: a run
 //    starts where the running boundary count steps, and its length is the
 //    count of deviating columns between its start and the next start.
+//  - Events binned by tile: integer adds commute, so the order in which a
+//    bucket's events land changes nothing, and a tile's carry is the sum of
+//    the events before it.
+//  - Packed counts: the sum of a + 65536 b over events is exact in int32
+//    while every partial count of either half lies in (-32768, 32768).
 //  - Bitplanes in place of the (R, S) int8 matrix: A == h, A == 1 - h and
 //    the votes become ANDs and popcounts of 32 reads at a time.
 // Byte-exactness: the balance is __fdiv_rn (no fast math); argmax takes the
 // first maximum; every comparison is the plain version's integer one.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdlib.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kCols = 4;                  // columns a thread holds in a tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kCols = 8;                  // columns a thread holds in a tile
+constexpr int kTile = kCols * kThreads;   // columns of a tile
+constexpr int kTileBits = 12;             // log2(kTile)
+constexpr int kRows = 7;                  // span, deletion, 5 substitution rows
+constexpr int kMaxCluster = 4;            // CTAs a region, at most
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDelSym = 254;
 constexpr unsigned kMaxCol = (1u << 26) - 1;   // columns fit 26 key bits
+constexpr unsigned kNoRead = 0xffffu;          // an event's read past R
+constexpr int kMaxReads = 32767;               // a 16-bit half per count
 
 // sections of wire.delta_flat_layout, in order
 enum { IN_REF, IN_STARTS, IN_ENDS, IN_RV, IN_SUB_POS, IN_SUB_READ, IN_SUB_SYM,
        IN_DEL_READ, IN_DEL_A, IN_DEL_B, IN_LTRUE, IN_COUNT };
-// misc scalars in shared memory
-enum { M_A0_COL0, M_CD, M_COUNT };
+// misc scalars in shared memory; the leader's also gather the cluster's
+// (M_CARRY_C through M_VSUB + 4 are cleared together)
+enum { M_A0_COL0, M_CD, M_LAST = M_CD + 2, M_CARRY_C = M_LAST + 2, M_CARRY_D,
+       M_VSUB, M_PREV = M_VSUB + 5, M_TOTALS,
+       M_COUNT = M_TOTALS + 4 * kMaxCluster };
+// the state of a column in the vote: symbol or 7 (bits 0-2), deviates (bit 3)
+constexpr int kStateBits = 4;
 
 struct Params {
   const uint8_t* buf;
   uint8_t* out;
-  uint32_t* scratch;          // the planes when they are not in shared memory
-  int G, R, L, Ds, Dd, Drle, S, RW;
+  uint32_t* planes_g;         // the planes when they are not in shared memory
+  uint32_t* events_g;         // the events when they are not in shared memory
+  int32_t* stage_g;           // runs of a CTA past the leader, per track
+  int G, R, L, Ds, Dd, Drle, S, RW, nc, E, tiles_per_cta;
   int mec_iters, min_site_depth, min_minor_count, lo_num, lo_den, hi_num,
       hi_den, purify_window, purify_min_pairs, purify_num, purify_den;
   long long in_off[IN_COUNT];
   long long out_stride;
-  // shared memory, byte offsets: the union (sweep buffers or planes) first
-  int s_keys, s_dcov, s_ddel, s_dsub, s_st, s_dv, s_sym, s_cov, s_planes;
-  int s_wsum, s_misc, s_col, s_tcol, s_blk, s_bstart, s_hm, s_a, s_ta, s_h,
-      s_hn, s_lnk, s_hp;
+  // shared memory, byte offsets: the union (difference arrays or planes)
+  // first
+  int s_keys, s_dif, s_planes, s_events, s_toff, s_cur;
+  int s_wsum, s_wscan, s_wlast, s_misc, s_col, s_tcol, s_blk, s_bstart, s_hm,
+      s_a, s_ta, s_h, s_hn, s_lnk, s_hp, s_cls;
 };
 
 // One region's inputs and the CTA's shared arrays.
@@ -111,19 +157,22 @@ struct Ctx {
   const int* del_b;
   int ltrue;
   uint8_t* out;
-  unsigned long long* keys;   // (S,) best key of each strip
-  int* dcov;                  // (T,) span events of a tile
-  int* ddel;                  // (T,) deletion-run events of a tile
-  int* dsub;                  // (5, T) substitutions of a tile by symbol
-  uint8_t* st;                // (T,) vote sweep: state, deviation, symbol,
-  uint8_t* dv;                //      coverage of a tile's columns
-  uint8_t* sym;
-  uint8_t* cov;
+  int rank, nc;               // this CTA in its region's cluster
+  int c_lo, c_hi, n_tiles;    // its columns [c_lo, c_hi) in n_tiles tiles
+  unsigned long long* keys;   // (S,) best key of each strip in this CTA
+  int* dif;                   // (kRows, kTile) difference arrays of a tile
+  uint32_t* events;           // this CTA's events, bucketed by tile
+  int* toff;                  // (n_tiles + 1,) first event of each tile
+  int* cur;                   // (n_tiles,) scatter cursors
+  int32_t* stage;             // (2, 3, Drle + 1) runs staged by a CTA > 0
   uint32_t* pcov;             // (S, RW) covered bits
   uint32_t* pmin;             // (S, RW) minor-allele bits
   uint32_t* pasm;             // (S, RW) assignment bits a block (and a temp)
   int* wsum;                  // (33,) block scan
+  int2* wscan;                // (2, 32) block scan of pairs, two buffers
+  int* wlast;                 // (kWarps,) state of each warp's last column
   int* misc;
+  int* lmisc;                 // the leader's misc (this CTA's own on it)
   int* col;                   // (S,) site columns
   int* tcol;                  // (S,) temp
   int* blk;                   // (S,) block of a site (and a temp)
@@ -135,10 +184,15 @@ struct Ctx {
   uint8_t* hn;                // (S,) flags and the next h
   uint8_t* lnk;               // (S,) site linked to the next one
   int8_t* hp;                 // (R,) read haplotype
+  uint8_t* cls;               // (R,) read class in the vote: bit k-1 for k
 };
 
-__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
-__device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ __forceinline__ int imin(int a, int b) {
+  return a < b ? a : b;
+}
+__host__ __device__ __forceinline__ int imax(int a, int b) {
+  return a > b ? a : b;
+}
 
 __device__ __forceinline__ void st_i32(uint8_t* p, int v) {
   // the result sections need not be 4-byte aligned: byte stores
@@ -167,6 +221,16 @@ __device__ __forceinline__ int warp_incl_scan(int v) {
   return v;
 }
 
+__device__ __forceinline__ int2 warp_incl_scan2(int2 v) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int nx = __shfl_up_sync(kFull, v.x, o);
+    const int ny = __shfl_up_sync(kFull, v.y, o);
+    if (lane >= o) { v.x += nx; v.y += ny; }
+  }
+  return v;
+}
+
 // Exclusive scan of v over the block; the block's total in `total`.  Every
 // thread calls it.
 __device__ int block_excl_scan(int v, int* wsum, int& total) {
@@ -188,6 +252,33 @@ __device__ int block_excl_scan(int v, int* wsum, int& total) {
   return res;
 }
 
+// Exclusive scan of a pair over the block with one barrier: every warp scans
+// the warp totals itself.  The two buffers alternate (`par`, the same in
+// every thread): a scan writes the buffer that the scan before the last one
+// read, and every thread had read it before the last scan's barrier.
+__device__ int2 block_scan2(int2 v, int2* wscan, int& par, int2& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int2 inc = warp_incl_scan2(v);
+  int2* buf = wscan + 32 * par;
+  par ^= 1;
+  if (lane == 31) buf[warp] = inc;
+  __syncthreads();
+  int2 s = lane < kWarps ? buf[lane] : make_int2(0, 0);
+  s = warp_incl_scan2(s);
+  const int src = warp ? warp - 1 : 0;
+  int2 before;
+  before.x = __shfl_sync(kFull, s.x, src);
+  before.y = __shfl_sync(kFull, s.y, src);
+  total.x = __shfl_sync(kFull, s.x, kWarps - 1);
+  total.y = __shfl_sync(kFull, s.y, kWarps - 1);
+  if (!warp) before = make_int2(0, 0);
+  return make_int2(before.x + inc.x - v.x, before.y + inc.y - v.y);
+}
+
+// the two haplotypes' counts out of a packed int32 (low half first)
+__device__ __forceinline__ int lo16(int w) { return (int)(short)(w & 0xffff); }
+__device__ __forceinline__ int hi16(int w) { return (w - lo16(w)) >> 16; }
+
 __device__ __forceinline__ int code_of(int i) { return i < 4 ? i : kDelSym; }
 
 // 0 major, 1 minor, -1 neither, for a read symbol at a site of alleles a
@@ -197,12 +288,6 @@ __device__ __forceinline__ int allele_of(int sym, int a) {
 
 __device__ __forceinline__ bool spans(const Ctx& c, int r, int col) {
   return c.rv[r] && c.starts[r] <= col && col < c.ends[r];
-}
-
-__device__ __forceinline__ bool uses(const Params& p, const Ctx& c, int r,
-                                     int k) {
-  if (r < 0 || r >= p.R || !c.rv[r]) return false;
-  return k == 0 || c.hp[r] == 0 || c.hp[r] == k;
 }
 
 // first site slot in [0, n) whose column is >= col
@@ -215,87 +300,215 @@ __device__ __forceinline__ int lower_site(const Ctx& c, int n, int col) {
   return lo;
 }
 
-// One tile's events into the difference arrays.  k == 0: the counts of the
-// site search (every valid read, every deletion run and substitution);
-// k == 1, 2: the vote of haplotype k (reads of hp k or 0 and their events).
-__device__ void tile_events(const Params& p, const Ctx& c, int t0, int T,
-                            int k) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    c.dcov[i] = 0;
-    c.ddel[i] = 0;
-  }
-  for (int i = threadIdx.x; i < 5 * T; i += blockDim.x) c.dsub[i] = 0;
-  __syncthreads();
+// -- events -----------------------------------------------------------------
+
+// Event kinds: span start and end, deletion-run start and end, then a
+// substitution of symbol 0..4.  The difference-array row of a kind, and
+// its sign.
+enum { EV_SPAN_A, EV_SPAN_B, EV_DEL_A, EV_DEL_B, EV_SUB };
+__device__ __forceinline__ int row_of(int kind) {
+  return kind < EV_DEL_A ? 0 : (kind < EV_SUB ? 1 : kind - EV_SUB + 2);
+}
+
+// f(col, kind, read) for this thread's share of the region's events that a
+// sweep counts: the spans of the valid reads, the deletion runs and the
+// substitutions of a read (a padded one has read < 0), each at a column in
+// [0, L); read is kNoRead for a read past R.  The site sweep counts every
+// such event; the vote weights it by its read's class.  One loop a section
+// keeps each loop's loads independent of the last.
+template <class F>
+__device__ __forceinline__ void for_each_event(const Params& p, const Ctx& c,
+                                               F f) {
   for (int r = threadIdx.x; r < p.R; r += blockDim.x) {
-    if (!uses(p, c, r, k)) continue;
-    const unsigned a = (unsigned)(c.starts[r] - t0);
-    const unsigned b = (unsigned)(c.ends[r] - t0);
-    if (a < (unsigned)T) atomicAdd(&c.dcov[a], 1);
-    if (b < (unsigned)T) atomicAdd(&c.dcov[b], -1);
+    const int a = c.starts[r], b = c.ends[r];
+    if (!c.rv[r]) continue;
+    if (0 <= a && a < p.L) f(a, (int)EV_SPAN_A, (unsigned)r);
+    if (0 <= b && b < p.L) f(b, (int)EV_SPAN_B, (unsigned)r);
   }
   for (int i = threadIdx.x; i < p.Dd; i += blockDim.x) {
-    const int r = c.del_read[i];
-    if (k == 0 ? r < 0 : !uses(p, c, r, k)) continue;
-    const unsigned a = (unsigned)(c.del_a[i] - t0);
-    const unsigned b = (unsigned)(c.del_b[i] - t0);
-    if (a < (unsigned)T) atomicAdd(&c.ddel[a], 1);
-    if (b < (unsigned)T) atomicAdd(&c.ddel[b], -1);
+    const int r = c.del_read[i], a = c.del_a[i], b = c.del_b[i];
+    if (r < 0) continue;
+    const unsigned read = r < p.R ? (unsigned)r : kNoRead;
+    if (0 <= a && a < p.L) f(a, (int)EV_DEL_A, read);
+    if (0 <= b && b < p.L) f(b, (int)EV_DEL_B, read);
   }
   for (int i = threadIdx.x; i < p.Ds; i += blockDim.x) {
-    const int r = c.sub_read[i];
-    if (k == 0 ? r < 0 : !uses(p, c, r, k)) continue;
-    const unsigned q = (unsigned)(c.sub_pos[i] - t0);
-    if (q < (unsigned)T)
-      atomicAdd(&c.dsub[imin(c.sub_sym[i], 4) * T + q], 1);
+    const int r = c.sub_read[i], q = c.sub_pos[i];
+    const int kind = EV_SUB + imin(c.sub_sym[i], 4);
+    if (r < 0 || q < 0 || q >= p.L) continue;
+    f(q, kind, r < p.R ? (unsigned)r : kNoRead);
   }
+}
+
+// The vote's weight of a read's events: its class's bits as the 16-bit
+// halves of the two haplotypes' counts.
+__device__ __forceinline__ int class_weight(const Ctx& c, unsigned read) {
+  if (read == kNoRead) return 0;
+  const int k = c.cls[read];
+  return (k & 1) + ((k & 2) << 15);
+}
+
+// Bin this CTA's events by tile; the site sweep's span and deletion counts
+// at c_lo from the events before it go to misc.
+__device__ void bin_events(const Params& p, const Ctx& c) {
+  const int nt = c.n_tiles;
+  for (int t = threadIdx.x; t <= nt; t += blockDim.x) c.toff[t] = 0;
+  if (threadIdx.x == 0) {
+    c.misc[M_CARRY_C] = 0;
+    c.misc[M_CARRY_D] = 0;
+  }
+  __syncthreads();
+  int carry_c = 0, carry_d = 0;
+  for_each_event(p, c, [&](int col, int kind, unsigned) {
+    if (col < c.c_lo) {
+      const int s = (kind & 1) ? -1 : 1;
+      if (kind < EV_DEL_A) carry_c += s;
+      else if (kind < EV_SUB) carry_d += s;
+    } else if (col < c.c_hi) {
+      atomicAdd(&c.toff[(col - c.c_lo) >> kTileBits], 1);
+    }
+  });
+  carry_c = warp_sum(carry_c);
+  carry_d = warp_sum(carry_d);
+  if ((threadIdx.x & 31) == 0 && (carry_c | carry_d)) {
+    atomicAdd(&c.misc[M_CARRY_C], carry_c);
+    atomicAdd(&c.misc[M_CARRY_D], carry_d);
+  }
+  __syncthreads();
+  // counts to offsets, in chunks of a block
+  int run = 0;
+  for (int t0 = 0; t0 <= nt; t0 += blockDim.x) {
+    const int t = t0 + threadIdx.x;
+    const int n = t < nt ? c.toff[t] : 0;
+    int tot;
+    const int off = run + block_excl_scan(n, c.wsum, tot);
+    if (t <= nt) c.toff[t] = off;
+    if (t < nt) c.cur[t] = off;
+    run += tot;
+  }
+  __syncthreads();
+  for_each_event(p, c, [&](int col, int kind, unsigned read) {
+    if (col < c.c_lo || col >= c.c_hi) return;
+    const int q = col - c.c_lo;
+    const int slot = atomicAdd(&c.cur[q >> kTileBits], 1);
+    c.events[slot] = (read << 16) | ((unsigned)kind << kTileBits) |
+                     (unsigned)(q & (kTile - 1));
+  });
   __syncthreads();
 }
 
-// A tile's span and deletion counts at this thread's kCols columns, from
-// the tile's events and the carries of the tiles before it.
-__device__ void tile_counts(const Params& p, const Ctx& c, int t0, int k,
-                            int& carry_c, int& carry_d, int (&cov)[kCols],
-                            int (&del)[kCols]) {
-  const int T = kCols * blockDim.x, i0 = threadIdx.x * kCols;
-  tile_events(p, c, t0, T, k);
-  int sc = 0, sd = 0;
-  for (int j = 0; j < kCols; ++j) {
-    sc += c.dcov[i0 + j];
-    sd += c.ddel[i0 + j];
-    cov[j] = sc;
-    del[j] = sd;
-  }
-  int tc, td;
-  const int ec = block_excl_scan(sc, c.wsum, tc);
-  const int ed = block_excl_scan(sd, c.wsum, td);
-  for (int j = 0; j < kCols; ++j) {
-    cov[j] += carry_c + ec;
-    del[j] += carry_d + ed;
-  }
-  carry_c += tc;
-  carry_d += td;
+// Where column q of a tile lies in a difference row: thread t's columns
+// 8t..8t+3 at 4t of the row's first half, 8t+4..8t+7 at 4t of its second,
+// so that a warp reads its threads' columns four at a time with no two
+// threads on one bank.
+static_assert(kCols == 8, "slot_of and quad_of take 8 columns a thread");
+__device__ __forceinline__ int slot_of(int q) {
+  return ((q >> 2) & 1) * (kTile / 2) + ((q >> 3) << 2) + (q & 3);
 }
 
-// Sweep 1: column counts, het columns, the best column of each strip.
+// One tile's events into the difference arrays (which are clear): weight 1
+// in the site sweep, the read's class weight in the vote.  No barrier.
+__device__ __forceinline__ void tile_events(const Ctx& c, int lt, bool vote) {
+  const int e1 = c.toff[lt + 1];
+  for (int e = c.toff[lt] + threadIdx.x; e < e1; e += blockDim.x) {
+    const uint32_t ev = c.events[e];
+    const int w = vote ? class_weight(c, ev >> 16) : 1;
+    if (!w) continue;
+    const int kind = (ev >> kTileBits) & 15;
+    const int q = ev & (kTile - 1);
+    atomicAdd(&c.dif[row_of(kind) * kTile + slot_of(q)],
+              (kind == EV_SPAN_B || kind == EV_DEL_B) ? -w : w);
+  }
+}
+
+// Where this thread's columns 4h..4h+3 of a tile lie in a difference row.
+__device__ __forceinline__ int quad_of(int h) {
+  return h * (kTile / 2) + 4 * threadIdx.x;
+}
+
+// This thread's kCols span and deletion counts in a tile (packed per
+// haplotype in the vote), from the difference arrays, which it clears, and
+// the carries; one barrier.  Call after the tile's events and a barrier.
+__device__ __forceinline__ void tile_counts(const Ctx& c, int& par,
+                                            int& carry_c, int& carry_d,
+                                            int (&cov)[kCols],
+                                            int (&del)[kCols]) {
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int h = 0; h < kCols / 4; ++h) {
+    int4* dc = reinterpret_cast<int4*>(c.dif + quad_of(h));
+    int4* dd = reinterpret_cast<int4*>(c.dif + kTile + quad_of(h));
+    const int4 vc = *dc, vd = *dd;
+    *dc = zero;
+    *dd = zero;
+    cov[4 * h] = vc.x; cov[4 * h + 1] = vc.y;
+    cov[4 * h + 2] = vc.z; cov[4 * h + 3] = vc.w;
+    del[4 * h] = vd.x; del[4 * h + 1] = vd.y;
+    del[4 * h + 2] = vd.z; del[4 * h + 3] = vd.w;
+  }
+  for (int j = 1; j < kCols; ++j) {
+    cov[j] += cov[j - 1];
+    del[j] += del[j - 1];
+  }
+  int2 tot;
+  const int2 ex = block_scan2(make_int2(cov[kCols - 1], del[kCols - 1]),
+                              c.wscan, par, tot);
+  for (int j = 0; j < kCols; ++j) {
+    cov[j] += carry_c + ex.x;
+    del[j] += carry_d + ex.y;
+  }
+  carry_c += tot.x;
+  carry_d += tot.y;
+}
+
+// the substitution counts of this thread's columns 4h..4h+3 in a tile,
+// read and cleared: sub[column][symbol]
+__device__ __forceinline__ void take_subs(const Ctx& c, int h,
+                                          int (&sub)[4][5]) {
+  for (int s = 0; s < 5; ++s) {
+    int4* q = reinterpret_cast<int4*>(c.dif + (2 + s) * kTile + quad_of(h));
+    const int4 v = *q;
+    *q = make_int4(0, 0, 0, 0);
+    sub[0][s] = v.x;
+    sub[1][s] = v.y;
+    sub[2][s] = v.z;
+    sub[3][s] = v.w;
+  }
+}
+
+__device__ void clear_dif(const Ctx& c) {
+  int4* d = reinterpret_cast<int4*>(c.dif);
+  for (int i = threadIdx.x; i < kRows * kTile / 4; i += blockDim.x)
+    d[i] = make_int4(0, 0, 0, 0);
+}
+
+// Sweep 1 over this CTA's tiles: column counts, het columns, the best
+// column of each strip among them in this CTA's keys.
 __device__ void sweep_sites(const Params& p, const Ctx& c) {
-  const int T = kCols * blockDim.x, i0 = threadIdx.x * kCols, S = p.S;
+  const int S = p.S, i0 = threadIdx.x * kCols;
   // strips over the region's TRUE length; the last strip takes the rest
   const int strip = imax((c.ltrue + S - 1) / S, 1);
-  for (int s = threadIdx.x; s < S; s += blockDim.x) c.keys[s] = 0ull;
-  int carry_c = 0, carry_d = 0;
-  for (int t0 = 0; t0 < p.L; t0 += T) {
+  int carry_c = c.misc[M_CARRY_C], carry_d = c.misc[M_CARRY_D], par = 0;
+  for (int lt = 0; lt < c.n_tiles; ++lt) {
+    const int t0 = c.c_lo + lt * kTile;
+    tile_events(c, lt, false);
+    __syncthreads();
     int cov[kCols], del[kCols];
-    tile_counts(p, c, t0, 0, carry_c, carry_d, cov, del);
+    tile_counts(c, par, carry_c, carry_d, cov, del);
+    int subs[4][5];
     for (int j = 0; j < kCols; ++j) {
-      const int i = i0 + j, col = t0 + i;
-      if (col >= p.L) break;
-      int cnt[5], nsub = 0;
-      for (int s = 0; s < 5; ++s) nsub += c.dsub[s * T + i];
-      const int base = cov[j] - del[j] - nsub;   // reads matching ref
+      const int col = t0 + i0 + j;
+      if ((j & 3) == 0) take_subs(c, j >> 2, subs);
+      const int* sub = subs[j & 3];
+      if (col >= c.c_hi) continue;
+      // no substitution and no deletion: no second allele, never a site
+      if (col != 0 && del[j] == 0 &&
+          (sub[0] | sub[1] | sub[2] | sub[3] | sub[4]) == 0)
+        continue;
+      int cnt[5];
+      const int base = cov[j] - del[j] - sub[0] - sub[1] - sub[2] - sub[3] -
+                       sub[4];                  // reads matching ref
       const int rf = c.ref[col];
-      for (int s = 0; s < 4; ++s)
-        cnt[s] = (rf == s ? base : 0) + c.dsub[s * T + i];
+      for (int s = 0; s < 4; ++s) cnt[s] = (rf == s ? base : 0) + sub[s];
       cnt[4] = del[j];
       // a0: the first maximum; a1: the first maximum with a0 masked to -1
       int a0 = 0, n0 = cnt[0];
@@ -321,8 +534,8 @@ __device__ void sweep_sites(const Params& p, const Ctx& c) {
       atomicMax(&c.keys[stripe],
                 ((unsigned long long)__float_as_uint(bal) << 32) | lo);
     }
+    __syncthreads();       // every column read and cleared: the next events
   }
-  __syncthreads();
 }
 
 // The selected strips to the front in strip order (ascending columns); the
@@ -361,28 +574,37 @@ __device__ __forceinline__ void set_allele(const Ctx& c, int idx, int lane,
 __device__ void build_alleles(const Params& p, const Ctx& c, int n_het) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5, RW = p.RW, total = p.S * RW;
-  for (int idx = warp; idx < total; idx += nw) {
+  for (int idx = warp; idx < n_het * RW; idx += nw) {
     const int s = idx / RW, w = idx - s * RW;
-    unsigned cw = 0, mw = 0;
-    if (s < n_het) {
-      const int col = c.col[s], r = w * 32 + lane;
-      const unsigned span = __ballot_sync(kFull, r < p.R && spans(c, r, col));
-      const int v = allele_of(c.ref[col], c.a[s]);
-      cw = v >= 0 ? span : 0u;
-      mw = v == 1 ? span : 0u;
-    }
+    const int col = c.col[s], r = w * 32 + lane;
+    const unsigned span = __ballot_sync(kFull, r < p.R && spans(c, r, col));
+    const int v = allele_of(c.ref[col], c.a[s]);
     if (lane == 0) {
-      c.pcov[idx] = cw;
-      c.pmin[idx] = mw;
+      c.pcov[idx] = v >= 0 ? span : 0u;
+      c.pmin[idx] = v == 1 ? span : 0u;
     }
   }
+  for (int idx = n_het * RW + threadIdx.x; idx < total; idx += blockDim.x) {
+    c.pcov[idx] = 0u;
+    c.pmin[idx] = 0u;
+  }
   __syncthreads();
-  for (int i = threadIdx.x; i < p.Ds; i += blockDim.x) {
-    const int r = c.sub_read[i], pos = c.sub_pos[i];
-    if (r < 0 || r >= p.R) continue;
-    const int s = lower_site(c, n_het, pos);
-    if (s == n_het || c.col[s] != pos || !spans(c, r, pos)) continue;
-    set_allele(c, s * RW + (r >> 5), r & 31, allele_of(c.sub_sym[i], c.a[s]));
+  // four substitutions a thread at a time, their loads in flight together
+  for (int i0 = threadIdx.x; i0 < p.Ds; i0 += 4 * blockDim.x) {
+    int rr[4], pp[4];
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + k * blockDim.x;
+      rr[k] = i < p.Ds ? c.sub_read[i] : -1;
+      pp[k] = i < p.Ds ? c.sub_pos[i] : 0;
+    }
+    for (int k = 0; k < 4; ++k) {
+      const int r = rr[k], pos = pp[k];
+      if (r < 0 || r >= p.R) continue;
+      const int s = lower_site(c, n_het, pos);
+      if (s == n_het || c.col[s] != pos || !spans(c, r, pos)) continue;
+      set_allele(c, s * RW + (r >> 5), r & 31,
+                 allele_of(c.sub_sym[i0 + k * blockDim.x], c.a[s]));
+    }
   }
   __syncthreads();
   // a deletion run over a site makes it DEL, whatever else the read has
@@ -598,20 +820,19 @@ __device__ void sites_out(const Params& p, const Ctx& c, int nS) {
   uint8_t* o_a1 = o_a0 + S;
   uint8_t* o_h = o_a1 + S;
   uint8_t* o_conn = o_h + S;
-  for (int j = warp; j < S; j += nw) {
+  for (int j = warp; j < nS; j += nw) {
     int v1 = 0, v0 = 0;
-    if (j < nS) {
-      for (int w = lane; w < RW; w += 32) {
-        const unsigned cw = c.pcov[j * RW + w], mw = c.pmin[j * RW + w];
-        const unsigned h1 = c.hm[w], h2 = c.hm[RW + w];
-        v1 += __popc(cw & mw & h1) + __popc(cw & ~mw & h2);
-        v0 += __popc(cw & ~mw & h1) + __popc(cw & mw & h2);
-      }
+    for (int w = lane; w < RW; w += 32) {
+      const unsigned cw = c.pcov[j * RW + w], mw = c.pmin[j * RW + w];
+      const unsigned h1 = c.hm[w], h2 = c.hm[RW + w];
+      v1 += __popc(cw & mw & h1) + __popc(cw & ~mw & h2);
+      v0 += __popc(cw & ~mw & h1) + __popc(cw & mw & h2);
     }
     v1 = warp_sum(v1);
     v0 = warp_sum(v0);
     if (lane == 0) o_h[j] = v1 > v0;
   }
+  for (int j = nS + threadIdx.x; j < S; j += blockDim.x) o_h[j] = 0;
   for (int j = threadIdx.x; j < S; j += blockDim.x) {
     st_i32(c.out + 4 + 4LL * j, c.col[j]);
     o_a0[j] = (uint8_t)code_of(c.a[j] & 15);
@@ -622,133 +843,323 @@ __device__ void sites_out(const Params& p, const Ctx& c, int nS) {
   __syncthreads();
 }
 
-// Sweep 2 or 3: haplotype k's 6-symbol vote at every column and its track,
-// as RLE runs against the reference (Drle > 0) or as nibbles and coverage
-// bits (Drle == 0).
-__device__ void vote_track(const Params& p, const Ctx& c, int k) {
-  const int T = kCols * blockDim.x, i0 = threadIdx.x * kCols;
-  const int L = p.L, D = p.Drle;
-  uint8_t* tail = c.out + 4 + 8LL * p.S + 3LL * p.R;
-  uint8_t* o_nruns = tail + 4 * (k - 1);
-  uint8_t* o_start = tail + 8 + 4LL * D * (k - 1);
-  uint8_t* o_len = tail + 8 + 8LL * D + 4LL * D * (k - 1);
-  uint8_t* o_val = tail + 8 + 16LL * D + (long long)D * (k - 1);
-  uint8_t* o_sym = tail + (long long)(L / 2) * (k - 1);
-  uint8_t* o_covb = tail + L + (long long)(L / 8) * (k - 1);
-  int carry_c = 0, carry_d = 0, carry_b = 0, carry_v = 0;
-  int prev_st = 255, prev_dv = 0;
-  for (int t0 = 0; t0 < L; t0 += T) {
-    int cov[kCols], del[kCols];
-    tile_counts(p, c, t0, k, carry_c, carry_d, cov, del);
-    for (int j = 0; j < kCols; ++j) {
-      const int i = i0 + j, col = t0 + i;
-      if (col >= L) break;
-      int cnt[6], nsub = 0;
-      for (int s = 0; s < 5; ++s) nsub += c.dsub[s * T + i];
-      const int base = cov[j] - del[j] - nsub;
-      const int rf = c.ref[col];
-      for (int s = 0; s < 5; ++s)
-        cnt[s] = (rf == s ? base : 0) + c.dsub[s * T + i];
-      cnt[5] = del[j];
-      int sym = 0, best = cnt[0], tot = cnt[0];
-      for (int s = 1; s < 6; ++s) {
-        tot += cnt[s];
-        if (cnt[s] > best) { best = cnt[s]; sym = s; }
-      }
-      const bool covered = tot > 0;
-      c.st[i] = (uint8_t)(covered ? sym : 7);
-      c.dv[i] = col < c.ltrue && !(covered && sym == rf);
-      c.sym[i] = (uint8_t)sym;
-      c.cov[i] = covered;
+// The vote's state of a column for one haplotype's counts, as kStateBits
+// bits: the voted symbol (0..5) or 7 when no read covers it, and bit 3 when
+// it deviates from the reference inside the region's true length; the
+// voted symbol itself in `sym`.
+__device__ __forceinline__ int column_state(int cov, int del, const int (&sub)[5],
+                                            int rf, bool in_true, int& sym) {
+  const int base = cov - del - sub[0] - sub[1] - sub[2] - sub[3] - sub[4];
+  int best = (rf == 0 ? base : 0) + sub[0], tot = best;
+  sym = 0;
+  for (int s = 1; s < 6; ++s) {
+    const int v = s < 5 ? (rf == s ? base : 0) + sub[s] : del;
+    tot += v;
+    if (v > best) { best = v; sym = s; }
+  }
+  const bool covered = tot > 0;
+  const bool dv = in_true && !(covered && sym == rf);
+  return (covered ? sym : 7) | (dv ? 8 : 0);
+}
+
+// A column's two states out of packed counts (haplotype 1 in bits 0-3,
+// haplotype 2 in bits 4-7) and the two voted symbols likewise.
+__device__ __forceinline__ int column_states(int cov, int del,
+                                             const int (&sub)[5], int rf,
+                                             bool in_true, int& syms) {
+  // most columns hold no substitution and no deletion: a read that covers
+  // one votes its reference base (a zero packed word is zero in both halves)
+  const int c1 = lo16(cov), c2 = hi16(cov);
+  if ((sub[0] | sub[1] | sub[2] | sub[3] | sub[4] | del) == 0 && rf < 5 &&
+      c1 >= 0 && c2 >= 0) {
+    const int a = c1 > 0 ? rf : 7 | (in_true ? 8 : 0);
+    const int b = c2 > 0 ? rf : 7 | (in_true ? 8 : 0);
+    syms = (c1 > 0 ? rf : 0) | ((c2 > 0 ? rf : 0) << 4);
+    return a | (b << kStateBits);
+  }
+  int s1[5], s2[5];
+  for (int s = 0; s < 5; ++s) {
+    s1[s] = lo16(sub[s]);
+    s2[s] = hi16(sub[s]);
+  }
+  int y1, y2;
+  const int a = column_state(c1, lo16(del), s1, rf, in_true, y1);
+  const int b = column_state(c2, hi16(del), s2, rf, in_true, y2);
+  syms = y1 | (y2 << 4);
+  return a | (b << kStateBits);
+}
+
+// The vote's span and deletion counts (packed) at c_lo from the events
+// before this CTA's range, and the state of the column before it
+// (M_PREV; 0 for the leader, whose range starts at column 0).
+__device__ void vote_carries(const Params& p, const Ctx& c) {
+  if (threadIdx.x < 7) c.misc[M_CARRY_C + threadIdx.x] = 0;  // carries, subs
+  __syncthreads();
+  if (c.rank > 0) {
+    int cc = 0, cd = 0;
+    for_each_event(p, c, [&](int col, int kind, unsigned read) {
+      if (col >= c.c_lo) return;
+      const int w = class_weight(c, read);
+      const int sw = (kind == EV_SPAN_B || kind == EV_DEL_B) ? -w : w;
+      if (kind < EV_DEL_A) cc += sw;
+      else if (kind < EV_SUB) cd += sw;
+      else if (col == c.c_lo - 1 && w)
+        atomicAdd(&c.misc[M_VSUB + kind - EV_SUB], w);
+    });
+    cc = warp_sum(cc);
+    cd = warp_sum(cd);
+    if ((threadIdx.x & 31) == 0 && (cc | cd)) {
+      atomicAdd(&c.misc[M_CARRY_C], cc);
+      atomicAdd(&c.misc[M_CARRY_D], cd);
     }
-    __syncthreads();
-    if (D > 0) {
-      // a run starts at a deviating column after a column that does not
-      // deviate or holds another state
-      int bnd[kCols], nb = 0, nd = 0;
-      for (int j = 0; j < kCols; ++j) {
-        const int i = i0 + j;
-        bnd[j] = 0;
-        if (t0 + i >= L) continue;
-        const int ps = i ? c.st[i - 1] : prev_st;
-        const int pd = i ? c.dv[i - 1] : prev_dv;
-        bnd[j] = c.dv[i] && (!pd || c.st[i] != ps);
-        nb += bnd[j];
-        nd += c.dv[i];
-      }
-      int tb, td;
-      int eb = carry_b + block_excl_scan(nb, c.wsum, tb);
-      int ed = carry_v + block_excl_scan(nd, c.wsum, td);
-      for (int j = 0; j < kCols; ++j) {
-        const int i = i0 + j;
-        if (t0 + i >= L) break;
-        if (bnd[j]) {
-          // run eb starts here; o_len holds, for now, the deviating
-          // columns before each start
-          if (eb < D) {
-            st_i32(o_start + 4LL * eb, t0 + i);
-            o_val[eb] = c.st[i];
-            st_i32(o_len + 4LL * eb, ed);
-          } else if (eb == D) {
-            c.misc[M_CD] = ed;
-          }
-          ++eb;
-        }
-        ed += c.dv[i];
-      }
-      carry_b += tb;
-      carry_v += td;
-    } else {
-      // dense: split-half nibbles (column i low, i + L/2 high) and the
-      // coverage bits, most significant first (np.packbits)
-      const int half = L / 2;
-      for (int i = threadIdx.x; i < T && t0 + i < L; i += blockDim.x)
-        if (t0 + i < half) o_sym[t0 + i] = c.sym[i];
-      __syncthreads();
-      for (int i = threadIdx.x; i < T && t0 + i < L; i += blockDim.x)
-        if (t0 + i >= half) o_sym[t0 + i - half] |= (uint8_t)(c.sym[i] << 4);
-      for (int q = threadIdx.x; q < T / 8 && t0 + 8 * q < L; q += blockDim.x) {
-        unsigned v = 0;
-        for (int b = 0; b < 8; ++b)
-          if (c.cov[8 * q + b]) v |= 0x80u >> b;
-        o_covb[(t0 >> 3) + q] = (uint8_t)v;
-      }
-    }
-    const int last = imin(T, L - t0) - 1;
-    prev_st = c.st[last];
-    prev_dv = c.dv[last];
   }
   __syncthreads();
-  if (D == 0) return;
-  // runs past the last: start L, length 0, the last column's state
-  const int n_runs = carry_b, total = carry_v;
   if (threadIdx.x == 0) {
-    st_i32(o_nruns, n_runs);
-    if (n_runs <= D) c.misc[M_CD] = total;
-  }
-  for (int b = n_runs + threadIdx.x; b < D; b += blockDim.x) {
-    st_i32(o_start + 4LL * b, L);
-    o_val[b] = (uint8_t)prev_st;
-    st_i32(o_len + 4LL * b, total);
+    int prev = 0;
+    if (c.rank > 0) {
+      const int col = c.c_lo - 1;
+      int sub[5], syms;
+      for (int s = 0; s < 5; ++s) sub[s] = c.misc[M_VSUB + s];
+      prev = column_states(c.misc[M_CARRY_C], c.misc[M_CARRY_D], sub,
+                           c.ref[col], col < c.ltrue, syms);
+    }
+    c.misc[M_PREV] = prev;
   }
   __syncthreads();
-  // a run's length: deviating columns up to the next start
-  for (int b0 = 0; b0 < D; b0 += blockDim.x) {
-    const int b = b0 + threadIdx.x;
-    int cur = 0, nxt = 0;
-    if (b < D) {
-      cur = ld_i32(o_len + 4LL * b);
-      nxt = b + 1 < D ? ld_i32(o_len + 4LL * (b + 1)) : c.misc[M_CD];
+}
+
+// A run of haplotype k (0, 1) starts at col: the leader writes it to the
+// result (run eb; at eb == Drle, the deviating columns before it go to
+// M_CD), a CTA after it stages it at its own index for now.
+__device__ __forceinline__ void record_run(const Params& p, const Ctx& c,
+                                           int k, int eb, int col, int st,
+                                           int ed, uint8_t* o_start,
+                                           uint8_t* o_len, uint8_t* o_val) {
+  const int D = p.Drle;
+  if (c.rank == 0) {
+    if (eb < D) {
+      st_i32(o_start + 4LL * eb, col);
+      o_val[eb] = (uint8_t)st;
+      st_i32(o_len + 4LL * eb, ed);
+    } else if (eb == D) {
+      c.misc[M_CD + k] = ed;
     }
-    __syncthreads();
-    if (b < D) st_i32(o_len + 4LL * b, nxt - cur);
-    __syncthreads();
+  } else if (eb <= D) {
+    int32_t* s = c.stage + 3 * (D + 1) * k;
+    s[eb] = col;
+    s[D + 1 + eb] = st;
+    s[2 * (D + 1) + eb] = ed;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) region_step_kernel(Params p) {
+// Sweep 2 over this CTA's tiles: both haplotypes' 6-symbol votes at every
+// column and their tracks, as RLE runs against the reference (Drle > 0) or
+// as nibbles and coverage bits (Drle == 0, one CTA a region).  Returns, in
+// nb and nd, this CTA's boundary and deviating-column counts per track.
+__device__ void sweep_votes(const Params& p, const Ctx& c, int (&nb)[2],
+                            int (&nd)[2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i0 = threadIdx.x * kCols, L = p.L, D = p.Drle, half = L / 2;
+  uint8_t* tail = c.out + 4 + 8LL * p.S + 3LL * p.R;
+  uint8_t* o_start[2] = {tail + 8, tail + 8 + 4LL * D};
+  uint8_t* o_len[2] = {tail + 8 + 8LL * D, tail + 8 + 12LL * D};
+  uint8_t* o_val[2] = {tail + 8 + 16LL * D, tail + 8 + 17LL * D};
+  uint8_t* o_sym[2] = {tail, tail + half};
+  uint8_t* o_covb[2] = {tail + L, tail + L + L / 8};
+  int carry_c = c.misc[M_CARRY_C], carry_d = c.misc[M_CARRY_D], par = 0;
+  int prev = c.misc[M_PREV];        // both states of the column before
+  nb[0] = nb[1] = nd[0] = nd[1] = 0;
+  for (int lt = 0; lt < c.n_tiles; ++lt) {
+    const int t0 = c.c_lo + lt * kTile;
+    tile_events(c, lt, true);
+    __syncthreads();
+    int cov[kCols], del[kCols];
+    tile_counts(c, par, carry_c, carry_d, cov, del);
+    // per column: both states (bits 0-7), both voted symbols (bits 8-15)
+    int cs[kCols], subs[4][5];
+    for (int j = 0; j < kCols; ++j) {
+      const int col = t0 + i0 + j;
+      if ((j & 3) == 0) take_subs(c, j >> 2, subs);
+      const int (&sub)[5] = subs[j & 3];
+      cs[j] = 0;
+      if (col >= c.c_hi) continue;
+      int syms;
+      const int s = column_states(cov[j], del[j], sub, c.ref[col],
+                                  col < c.ltrue, syms);
+      cs[j] = s | (syms << 8);
+      if (col == L - 1)
+        for (int k = 0; k < 2; ++k)
+          c.lmisc[M_LAST + k] = (s >> (kStateBits * k)) & 7;
+    }
+    if (lane == 31) c.wlast[warp] = cs[kCols - 1] & 0xff;
+    if (D == 0) {
+      // dense: split-half nibbles (column i low, i + L/2 high) and the
+      // coverage bits, most significant first (np.packbits)
+      const int col0 = t0 + i0;
+      for (int k = 0; k < 2; ++k) {
+        unsigned v = 0;
+        for (int j = 0; j < kCols; ++j) {
+          const int col = col0 + j;
+          const int sym = (cs[j] >> (8 + 4 * k)) & 15;
+          if (col < half) o_sym[k][col] = (uint8_t)sym;
+          if (((cs[j] >> (kStateBits * k)) & 7) != 7) v |= 0x80u >> j;
+        }
+        if (col0 < c.c_hi) o_covb[k][col0 >> 3] = (uint8_t)v;
+      }
+      __syncthreads();      // the low nibbles are in
+      for (int k = 0; k < 2; ++k)
+        for (int j = 0; j < kCols; ++j) {
+          const int col = col0 + j;
+          if (col >= half && col < c.c_hi)
+            o_sym[k][col - half] |= (uint8_t)(((cs[j] >> (8 + 4 * k)) & 15)
+                                              << 4);
+        }
+      continue;
+    }
+    __syncthreads();        // every warp's last column is in
+    // the state of the column before this thread's first: the thread
+    // before, the warp before, or the tile before
+    int before = __shfl_up_sync(kFull, cs[kCols - 1] & 0xff, 1);
+    if (lane == 0) before = warp ? c.wlast[warp - 1] : prev;
+    prev = c.wlast[kWarps - 1];
+    // a run starts at a deviating column after a column that does not
+    // deviate or holds another state
+    unsigned bnd = 0;           // bit j + 8k: column j starts a run of track k
+    int cnt_b = 0, cnt_d = 0;   // packed: track 0 low, track 1 high
+    for (int j = 0; j < kCols; ++j) {
+      const int cur = cs[j] & 0xff, pre = j ? cs[j - 1] & 0xff : before;
+      for (int k = 0; k < 2; ++k) {
+        const int sc = (cur >> (kStateBits * k)) & 15;
+        const int sp = (pre >> (kStateBits * k)) & 15;
+        const bool dv = sc & 8;
+        if (dv && (!(sp & 8) || (sc & 7) != (sp & 7))) {
+          bnd |= 1u << (j + 8 * k);
+          cnt_b += 1 << (16 * k);
+        }
+        if (dv) cnt_d += 1 << (16 * k);
+      }
+    }
+    int2 tot;
+    const int2 ex = block_scan2(make_int2(cnt_b, cnt_d), c.wscan, par, tot);
+    for (int k = 0; k < 2; ++k) {
+      const int sh = 16 * k;
+      int eb = nb[k] + ((ex.x >> sh) & 0xffff);
+      int ed = nd[k] + ((ex.y >> sh) & 0xffff);
+      for (int j = 0; j < kCols; ++j) {
+        const int sc = (cs[j] >> (kStateBits * k)) & 15;
+        if ((bnd >> (j + 8 * k)) & 1) {
+          record_run(p, c, k, eb, t0 + i0 + j, sc & 7, ed, o_start[k],
+                     o_len[k], o_val[k]);
+          ++eb;
+        }
+        ed += (sc >> 3) & 1;
+      }
+      nb[k] += (tot.x >> sh) & 0xffff;
+      nd[k] += (tot.y >> sh) & 0xffff;
+    }
+  }
+}
+
+// The tracks' runs across the cluster: each CTA past the leader moves its
+// staged runs to their indices (after the runs of the CTAs before it), then
+// the leader writes the run counts, the runs past the last (start L, length
+// 0, the state of column L - 1) and each run's length.
+__device__ void finish_runs(const Params& p, const Ctx& c,
+                            cg::cluster_group& cluster, const int (&nb)[2],
+                            const int (&nd)[2]) {
+  const int D = p.Drle, L = p.L;
+  if (threadIdx.x == 0)
+    for (int k = 0; k < 2; ++k) {
+      c.lmisc[M_TOTALS + 4 * c.rank + 2 * k] = nb[k];
+      c.lmisc[M_TOTALS + 4 * c.rank + 2 * k + 1] = nd[k];
+    }
+  cluster.sync();
+  uint8_t* tail = c.out + 4 + 8LL * p.S + 3LL * p.R;
+  if (c.rank > 0) {
+    for (int k = 0; k < 2; ++k) {
+      int off_b = 0, off_d = 0;
+      for (int r = 0; r < c.rank; ++r) {
+        off_b += c.lmisc[M_TOTALS + 4 * r + 2 * k];
+        off_d += c.lmisc[M_TOTALS + 4 * r + 2 * k + 1];
+      }
+      const int32_t* s = c.stage + 3 * (D + 1) * k;
+      uint8_t* o_start = tail + 8 + 4LL * D * k;
+      uint8_t* o_len = tail + 8 + 8LL * D + 4LL * D * k;
+      uint8_t* o_val = tail + 8 + 16LL * D + (long long)D * k;
+      for (int i = threadIdx.x; i < imin(nb[k], D + 1) && off_b + i <= D;
+           i += blockDim.x) {
+        const int b = off_b + i;
+        if (b < D) {
+          st_i32(o_start + 4LL * b, s[i]);
+          o_val[b] = (uint8_t)s[D + 1 + i];
+          st_i32(o_len + 4LL * b, s[2 * (D + 1) + i] + off_d);
+        } else {
+          c.lmisc[M_CD + k] = s[2 * (D + 1) + i] + off_d;
+        }
+      }
+    }
+  }
+  cluster.sync();
+  if (c.rank > 0) return;
+  for (int k = 0; k < 2; ++k) {
+    int n_runs = 0, total = 0;
+    for (int r = 0; r < c.nc; ++r) {
+      n_runs += c.misc[M_TOTALS + 4 * r + 2 * k];
+      total += c.misc[M_TOTALS + 4 * r + 2 * k + 1];
+    }
+    uint8_t* o_start = tail + 8 + 4LL * D * k;
+    uint8_t* o_len = tail + 8 + 8LL * D + 4LL * D * k;
+    uint8_t* o_val = tail + 8 + 16LL * D + (long long)D * k;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      st_i32(tail + 4 * k, n_runs);
+      if (n_runs <= D) c.misc[M_CD + k] = total;
+    }
+    for (int b = n_runs + threadIdx.x; b < D; b += blockDim.x) {
+      st_i32(o_start + 4LL * b, L);
+      o_val[b] = (uint8_t)c.misc[M_LAST + k];
+      st_i32(o_len + 4LL * b, total);
+    }
+    __syncthreads();
+    // a run's length: deviating columns up to the next start
+    for (int b0 = 0; b0 < D; b0 += blockDim.x) {
+      const int b = b0 + threadIdx.x;
+      int cur = 0, nxt = 0;
+      if (b < D) {
+        cur = ld_i32(o_len + 4LL * b);
+        nxt = b + 1 < D ? ld_i32(o_len + 4LL * (b + 1)) : c.misc[M_CD + k];
+      }
+      __syncthreads();
+      if (b < D) st_i32(o_len + 4LL * b, nxt - cur);
+      __syncthreads();
+    }
+  }
+}
+
+#ifdef FOCALSV_B2_PHASES
+// A build for testing/kernel_sweep.py --phases: each CTA's thread 0 stamps
+// the card's clock (ns) at the phase boundaries into 8 words a CTA after the
+// staged runs of the scratch.  The stamp's barrier is this build's alone.
+#define PHASE(i) phase_stamp(p, blockIdx.x, i)
+__device__ void phase_stamp(const Params& p, int cta, int i) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    reinterpret_cast<unsigned long long*>(
+        p.stage_g + (long long)p.G * kMaxCluster * 6 * (p.Drle + 1))
+        [8LL * cta + i] = t;
+  }
+}
+#else
+#define PHASE(i)
+#endif
+
+__global__ void __launch_bounds__(kThreads, 1) region_step_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int g = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int g = blockIdx.x / p.nc;
   const uint8_t* buf = p.buf;
   Ctx c;
   c.ref = buf + p.in_off[IN_REF] + (long long)g * p.L;
@@ -770,23 +1181,36 @@ __global__ void __launch_bounds__(kThreads) region_step_kernel(Params p) {
             (long long)g * p.Dd;
   c.ltrue = reinterpret_cast<const int*>(buf + p.in_off[IN_LTRUE])[g];
   c.out = p.out + (long long)g * p.out_stride;
+  c.rank = rank;
+  c.nc = p.nc;
+  // this CTA's tiles: a contiguous share of the region's
+  const int n_all = (p.L + kTile - 1) / kTile;
+  const int tlo = rank * n_all / p.nc, thi = (rank + 1) * n_all / p.nc;
+  c.c_lo = tlo * kTile;
+  c.c_hi = imin(thi * kTile, p.L);
+  c.n_tiles = thi - tlo;
   unsigned char* sm = smem_raw;
   c.keys = reinterpret_cast<unsigned long long*>(sm + p.s_keys);
-  c.dcov = reinterpret_cast<int*>(sm + p.s_dcov);
-  c.ddel = reinterpret_cast<int*>(sm + p.s_ddel);
-  c.dsub = reinterpret_cast<int*>(sm + p.s_dsub);
-  c.st = sm + p.s_st;
-  c.dv = sm + p.s_dv;
-  c.sym = sm + p.s_sym;
-  c.cov = sm + p.s_cov;
+  c.dif = reinterpret_cast<int*>(sm + p.s_dif);
+  const long long cta = (long long)g * kMaxCluster + rank;
+  c.events = p.s_events >= 0
+                 ? reinterpret_cast<uint32_t*>(sm + p.s_events)
+                 : p.events_g + cta * p.E;
+  c.toff = reinterpret_cast<int*>(sm + p.s_toff);
+  c.cur = reinterpret_cast<int*>(sm + p.s_cur);
+  c.stage = p.stage_g + cta * 6 * (p.Drle + 1);
   const long long plane = (long long)p.S * p.RW;
-  uint32_t* planes = p.scratch ? p.scratch + (long long)g * 3 * plane
-                               : reinterpret_cast<uint32_t*>(sm + p.s_planes);
+  uint32_t* planes = p.s_planes >= 0
+                         ? reinterpret_cast<uint32_t*>(sm + p.s_planes)
+                         : p.planes_g + (long long)g * 3 * plane;
   c.pcov = planes;
   c.pmin = planes + plane;
   c.pasm = planes + 2 * plane;
   c.wsum = reinterpret_cast<int*>(sm + p.s_wsum);
+  c.wscan = reinterpret_cast<int2*>(sm + p.s_wscan);
+  c.wlast = reinterpret_cast<int*>(sm + p.s_wlast);
   c.misc = reinterpret_cast<int*>(sm + p.s_misc);
+  c.lmisc = cluster.map_shared_rank(c.misc, 0);
   c.col = reinterpret_cast<int*>(sm + p.s_col);
   c.tcol = reinterpret_cast<int*>(sm + p.s_tcol);
   c.blk = reinterpret_cast<int*>(sm + p.s_blk);
@@ -798,27 +1222,58 @@ __global__ void __launch_bounds__(kThreads) region_step_kernel(Params p) {
   c.hn = sm + p.s_hn;
   c.lnk = sm + p.s_lnk;
   c.hp = reinterpret_cast<int8_t*>(sm + p.s_hp);
+  c.cls = sm + p.s_cls;
 
+  PHASE(0);
+  clear_dif(c);
+  for (int s = threadIdx.x; s < p.S; s += blockDim.x) c.keys[s] = 0ull;
+  bin_events(p, c);
+  PHASE(1);
   sweep_sites(p, c);
-  const int n_het = compact_sites(p, c);
-  build_alleles(p, c, n_het);
-  const int nS = purify(p, c, n_het);
-  const int nB = blocks_and_init(p, c, nS);
-  for (int it = 0; it < p.mec_iters; ++it) {
+  PHASE(2);
+  cluster.sync();                  // every CTA's strip keys are in
+  if (rank == 0) {
+    // the best of each strip over the cluster
+    for (int r = 1; r < p.nc; ++r) {
+      const unsigned long long* keys = cluster.map_shared_rank(c.keys, r);
+      for (int s = threadIdx.x; s < p.S; s += blockDim.x)
+        if (keys[s] > c.keys[s]) c.keys[s] = keys[s];
+    }
+    __syncthreads();
+    const int n_het = compact_sites(p, c);
+    build_alleles(p, c, n_het);
+    const int nS = purify(p, c, n_het);
+    const int nB = blocks_and_init(p, c, nS);
+    for (int it = 0; it < p.mec_iters; ++it) {
+      assign(p, c, nB);
+      if (!update_h(p, c, nS)) break;  // a fixed point: the rest repeat it
+    }
     assign(p, c, nB);
-    if (!update_h(p, c, nS)) break;    // a fixed point: the rest repeat it
+    reads_out(p, c, nS);
+    sites_out(p, c, nS);
   }
-  assign(p, c, nB);
-  reads_out(p, c, nS);
-  sites_out(p, c, nS);
-  vote_track(p, c, 1);
-  vote_track(p, c, 2);
+  PHASE(3);
+  cluster.sync();                  // every read's haplotype is in
+  // each read's class in the vote: hp 0 votes in both tracks
+  const int8_t* hp = cluster.map_shared_rank(c.hp, 0);
+  for (int r = threadIdx.x; r < p.R; r += blockDim.x)
+    c.cls[r] = c.rv[r] ? (hp[r] ? (uint8_t)hp[r] : (uint8_t)3) : (uint8_t)0;
+  clear_dif(c);                    // the planes used the leader's
+  vote_carries(p, c);
+  PHASE(4);
+  int nb[2], nd[2];
+  sweep_votes(p, c, nb, nd);
+  PHASE(5);
+  if (p.Drle > 0) finish_runs(p, c, cluster, nb, nd);
+  PHASE(6);
 }
 
-// Shared memory of a CTA: the union of the sweep's buffers and (when
-// planes_in_smem) the three planes, then the fixed arrays.  Returns bytes.
-size_t carve(Params& p, bool planes_in_smem) {
-  const size_t T = (size_t)kCols * kThreads, S = p.S;
+// Shared memory of a CTA: the strip keys, the union of the difference
+// arrays and (when planes_in_smem) the three planes, the events (when
+// events_in_smem), then the fixed arrays.  Offsets of what is not in shared
+// memory are -1.  Returns bytes.
+size_t carve(Params& p, bool planes_in_smem, bool events_in_smem) {
+  const size_t S = p.S;
   size_t off = 0;
   auto take = [&](size_t bytes, size_t align) {
     off = (off + align - 1) / align * align;
@@ -827,17 +1282,16 @@ size_t carve(Params& p, bool planes_in_smem) {
     return (int)at;
   };
   p.s_keys = take(8 * S, 16);
-  p.s_dcov = take(4 * T, 4);
-  p.s_ddel = take(4 * T, 4);
-  p.s_dsub = take(20 * T, 4);
-  p.s_st = take(T, 1);
-  p.s_dv = take(T, 1);
-  p.s_sym = take(T, 1);
-  p.s_cov = take(T, 1);
+  const size_t dif = 4ull * kRows * kTile;
   const size_t planes = 12 * S * (size_t)p.RW;
-  p.s_planes = 0;
-  if (planes_in_smem && planes > off) off = planes;
+  p.s_dif = take(planes_in_smem && planes > dif ? planes : dif, 16);
+  p.s_planes = planes_in_smem ? p.s_dif : -1;
+  p.s_events = events_in_smem ? take(4 * (size_t)p.E, 16) : -1;
+  p.s_toff = take(4 * (size_t)(p.tiles_per_cta + 1), 4);
+  p.s_cur = take(4 * (size_t)p.tiles_per_cta, 4);
   p.s_wsum = take(4 * 33, 16);
+  p.s_wscan = take(8 * 64, 16);
+  p.s_wlast = take(4 * kWarps, 4);
   p.s_misc = take(4 * M_COUNT, 4);
   p.s_col = take(4 * S, 4);
   p.s_tcol = take(4 * S, 4);
@@ -850,41 +1304,27 @@ size_t carve(Params& p, bool planes_in_smem) {
   p.s_hn = take(S, 1);
   p.s_lnk = take(S, 1);
   p.s_hp = take(p.R, 1);
+  p.s_cls = take(p.R, 1);
   return (off + 15) / 16 * 16;
 }
 
-int smem_limit() {
-  int dev = 0, limit = 0;
+int device_attr(cudaDeviceAttr attr) {
+  int dev = 0, v = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return limit;
+  cudaDeviceGetAttribute(&v, attr, dev);
+  return v;
 }
 
-}  // namespace
-
-extern "C" int focalsv_region_step(
-    const void* buf, void* out, void* scratch, int G, int R, int L, int Ds,
-    int Dd, int Drle, int S, int mec_iters, int min_site_depth,
-    int min_minor_count, int lo_num, int lo_den, int hi_num, int hi_den,
-    int purify_window, int purify_min_pairs, int purify_num, int purify_den,
-    void* stream) {
-  if (G <= 0) return 0;
-  if (R < 1 || L < 1 || S < 1 || Ds < 0 || Dd < 0 || Drle < 0 ||
-      (unsigned)L > kMaxCol || (Drle == 0 && L % 8 != 0))
+// The sizes, the input sections and the result stride of a chunk; an error
+// for what the kernel does not take.
+int init_params(Params& p, int G, int R, int L, int Ds, int Dd, int Drle,
+                int S) {
+  if (R < 1 || R > kMaxReads || L < 1 || S < 1 || Ds < 0 || Dd < 0 ||
+      Drle < 0 || (unsigned)L > kMaxCol || (Drle == 0 && L % 8 != 0))
     return (int)cudaErrorInvalidValue;
-  Params p = {};
-  p.buf = static_cast<const uint8_t*>(buf);
-  p.out = static_cast<uint8_t*>(out);
   p.G = G; p.R = R; p.L = L; p.Ds = Ds; p.Dd = Dd; p.Drle = Drle; p.S = S;
   p.RW = (R + 31) / 32;
-  p.mec_iters = mec_iters;
-  p.min_site_depth = min_site_depth;
-  p.min_minor_count = min_minor_count;
-  p.lo_num = lo_num; p.lo_den = lo_den; p.hi_num = hi_num; p.hi_den = hi_den;
-  p.purify_window = purify_window;
-  p.purify_min_pairs = purify_min_pairs;
-  p.purify_num = purify_num;
-  p.purify_den = purify_den;
+  p.E = 2 * R + 2 * Dd + Ds;
   const long long g = G;
   const long long sizes[IN_COUNT] = {g * L, g * R * 4, g * R * 4, g * R,
                                      g * Ds * 4, g * Ds * 4, g * Ds,
@@ -897,17 +1337,143 @@ extern "C" int focalsv_region_step(
   }
   const long long head = 4 + 8LL * S + 3LL * R;
   p.out_stride = Drle ? head + 8 + 18LL * Drle : head + L + 2LL * (L / 8);
-  const size_t limit = (size_t)smem_limit();
-  size_t smem = carve(p, true);
-  if (smem > limit) {
-    smem = carve(p, false);
-    if (smem > limit) return (int)cudaErrorInvalidValue;
-    p.scratch = static_cast<uint32_t*>(scratch);
+  return 0;
+}
+
+// Whether a cluster of nc CTAs with this launch's shared memory can be
+// placed on the current card, asked once a (card, nc, bytes).
+bool cluster_fits(const cudaLaunchConfig_t& cfg, int nc) {
+  static std::mutex lock;
+  static std::map<std::tuple<int, int, size_t>, bool> known;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_tuple(dev, nc, cfg.dynamicSmemBytes);
+  std::lock_guard<std::mutex> hold(lock);
+  const auto it = known.find(key);
+  if (it != known.end()) return it->second;
+  int active = 0;
+  const bool fits = cudaOccupancyMaxActiveClusters(&active, region_step_kernel,
+                                                   &cfg) == cudaSuccess &&
+                    active > 0;
+  cudaGetLastError();
+  known[key] = fits;
+  return fits;
+}
+
+// The launch of a chunk: CTAs a region, shared memory and what lives there,
+// and the launch configuration (attr: its cluster attribute).  A cluster
+// fills the SMs that one CTA a region leaves idle: the largest of 1, 2, 4
+// with a tile or more a CTA and G * nc within the SMs, or past them (a
+// second wave) where each CTA keeps 8 tiles or more, unless `cluster` names
+// one.  On an H100 that is 2 at phase 4's chunks of G 64 and 4 at its G 51,
+// L 131072 (PERF.md, PR 6).  The dense tracks are written by one CTA.  A
+// cluster that cannot be placed is halved.
+int plan(Params& p, int cluster, cudaLaunchConfig_t& cfg,
+         cudaLaunchAttribute* attr, cudaStream_t stream) {
+  const int n_tiles = (p.L + kTile - 1) / kTile;
+  int nc = cluster;
+  if (nc == 0) {
+    const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+    nc = 1;
+    while (nc < kMaxCluster && nc * 2 <= n_tiles &&
+           ((long long)p.G * nc * 2 <= sms || n_tiles >= 8 * nc * 2))
+      nc *= 2;
   }
-  cudaFuncSetAttribute(region_step_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  void* args[] = {&p};
-  cudaLaunchKernel(region_step_kernel, dim3(G), dim3(kThreads), args, smem,
-                   static_cast<cudaStream_t>(stream));
+  if (p.Drle == 0) nc = 1;
+  nc = imax(1, imin(nc, n_tiles));
+  const size_t limit =
+      (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  for (;;) {
+    p.nc = nc;
+    p.tiles_per_cta = (n_tiles + nc - 1) / nc;
+    size_t smem = 0;
+    bool fits = false;
+    for (int k = 0; k < 4 && !fits; ++k) {
+      smem = carve(p, !(k & 2), !(k & 1));
+      fits = smem <= limit;
+    }
+    if (!fits) return (int)cudaErrorInvalidValue;
+    cudaFuncSetAttribute(region_step_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(p.G * nc);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nc;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (nc == 1 || cluster_fits(cfg, nc)) return 0;
+    nc /= 2;
+  }
+}
+
+}  // namespace
+
+// The launch a chunk gets (see plan): plan_out = CTAs a region, dynamic
+// shared memory bytes a CTA, planes in shared memory (0, 1), events in
+// shared memory (0, 1), the kernel's registers a thread and its local
+// memory (spills) in bytes a thread.  Returns 0 or a CUDA error.
+extern "C" int focalsv_region_step_plan(int G, int R, int L, int Ds, int Dd,
+                                        int Drle, int S, int cluster,
+                                        int* plan_out) {
+  Params p = {};
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int err = G < 1 || cluster < 0 || cluster > kMaxCluster
+                ? (int)cudaErrorInvalidValue
+                : init_params(p, G, R, L, Ds, Dd, Drle, S);
+  if (!err) err = plan(p, cluster, cfg, attr, nullptr);
+  if (err) return err;
+  plan_out[0] = p.nc;
+  plan_out[1] = (int)cfg.dynamicSmemBytes;
+  plan_out[2] = p.s_planes >= 0;
+  plan_out[3] = p.s_events >= 0;
+  cudaFuncAttributes attrs;
+  err = (int)cudaFuncGetAttributes(&attrs, region_step_kernel);
+  plan_out[4] = attrs.numRegs;
+  plan_out[5] = (int)attrs.localSizeBytes;
+  return err;
+}
+
+// cluster: CTAs a region (1, 2 or 4); 0 lets plan choose.  The wrapper's
+// scratch holds, per region, 3 * S * ceil(R / 32) words of planes, then
+// kMaxCluster times 2R + 2Dd + Ds words of events and 6 * (Drle + 1) words
+// of staged runs.
+extern "C" int focalsv_region_step(
+    const void* buf, void* out, void* scratch, int G, int R, int L, int Ds,
+    int Dd, int Drle, int S, int mec_iters, int min_site_depth,
+    int min_minor_count, int lo_num, int lo_den, int hi_num, int hi_den,
+    int purify_window, int purify_min_pairs, int purify_num, int purify_den,
+    int cluster, void* stream) {
+  if (G <= 0) return 0;
+  if (cluster < 0 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  Params p = {};
+  int err = init_params(p, G, R, L, Ds, Dd, Drle, S);
+  if (err) return err;
+  p.buf = static_cast<const uint8_t*>(buf);
+  p.out = static_cast<uint8_t*>(out);
+  p.mec_iters = mec_iters;
+  p.min_site_depth = min_site_depth;
+  p.min_minor_count = min_minor_count;
+  p.lo_num = lo_num; p.lo_den = lo_den; p.hi_num = hi_num; p.hi_den = hi_den;
+  p.purify_window = purify_window;
+  p.purify_min_pairs = purify_min_pairs;
+  p.purify_num = purify_num;
+  p.purify_den = purify_den;
+  uint32_t* words = static_cast<uint32_t*>(scratch);
+  p.planes_g = words;
+  p.events_g = words + (long long)G * 3 * S * p.RW;
+  p.stage_g = reinterpret_cast<int32_t*>(p.events_g + (long long)G *
+                                                          kMaxCluster * p.E);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = plan(p, cluster, cfg, attr, static_cast<cudaStream_t>(stream));
+  if (err) return err;
+  cudaLaunchKernelEx(&cfg, region_step_kernel, p);
   return (int)cudaGetLastError();
 }

@@ -25,10 +25,17 @@ from focalsv_tpu_torch.parallel.wire import (delta_flat_layout, flat_layout,
 _lock = threading.Lock()
 _fns: dict = {}
 launches = 0             # launches of kernel B2
+# CTAs a region (a thread-block cluster of 1, 2 or 4); 0 lets the kernel
+# choose from the chunk's size and the card's SM count.  kernel_sweep sets it
+# to time each size.
+CLUSTER = 0
+MAX_CLUSTER = 4          # the kernel's kMaxCluster
+MAX_READS = 32767        # the kernel's kMaxReads: a count fits 16 bits
 
 _SIGNATURES = {
-    "focalsv_region_step": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
+    "focalsv_region_step": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 19
                             + [ctypes.c_void_p]),
+    "focalsv_region_step_plan": [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 
 
@@ -46,6 +53,37 @@ def reset_launches() -> None:
     global launches
     with _lock:
         launches = 0
+
+
+def launch_plan(G: int, R: int, L: int, Ds: int, Dd: int, Drle: int,
+                S: int, cluster: int | None = None) -> dict:
+    """How the kernel launches a chunk on the current card: CTAs a region
+    (the thread-block cluster), dynamic shared memory a CTA, whether the
+    bitplanes and the events live in shared memory, and the kernel's
+    registers and local (spilled) bytes a thread."""
+    plan = (ctypes.c_int * 6)()
+    err = _kernel("focalsv_region_step_plan")(
+        G, R, L, Ds, Dd, Drle, S, CLUSTER if cluster is None else cluster,
+        plan)
+    if err != 0:
+        raise RuntimeError(f"region_step kernel refuses G={G} R={R} L={L} "
+                           f"Ds={Ds} Dd={Dd} Drle={Drle} S={S}: CUDA error "
+                           f"{err}")
+    return dict(cluster=plan[0], smem_bytes=plan[1],
+                planes_in_smem=bool(plan[2]), events_in_smem=bool(plan[3]),
+                registers=plan[4], local_bytes=plan[5])
+
+
+def scratch_words(G: int, R: int, Ds: int, Dd: int, Drle: int,
+                  S: int) -> int:
+    """int32 words of the kernel's scratch, per region: the three bitplanes
+    (covered, minor, block assignment) of S rows by ceil(R / 32) words, used
+    where they do not fit in a CTA's shared memory; then for each CTA of the
+    largest cluster its events (2R + 2Dd + Ds), used where they do not fit,
+    and the runs it stages for both tracks (6 (Drle + 1))."""
+    events = 2 * R + 2 * Dd + Ds
+    return G * (3 * S * -(-R // 32)
+                + MAX_CLUSTER * (events + 6 * (Drle + 1)))
 
 
 def phase_consensus_delta_flat_cuda(
@@ -71,6 +109,8 @@ def phase_consensus_delta_flat_cuda(
                          f"Drle={Drle}")
     if L >= 1 << 26:
         raise ValueError(f"L={L} is past the kernel's 2^26 columns")
+    if R > MAX_READS:
+        raise ValueError(f"R={R} is past the kernel's {MAX_READS} reads")
     lay = delta_flat_layout(G, R, L, Ds, Dd)
     if buf.numel() != lay["__total__"][1]:
         raise ValueError(f"buf holds {buf.numel()} bytes, the layout of "
@@ -90,11 +130,8 @@ def phase_consensus_delta_flat_cuda(
         raise ValueError(f"phase_consensus_delta_flat_cuda needs a CUDA "
                          f"buffer, got {device}")
     out = torch.empty((G, nbytes), dtype=torch.uint8, device=device)
-    # a region's three bitplanes (covered, minor, block assignment), S rows
-    # of ceil(R / 32) words: the kernel uses them where they do not fit in
-    # a CTA's shared memory
-    scratch = torch.empty(G * 3 * S * -(-R // 32), dtype=torch.int32,
-                          device=device)
+    scratch = torch.empty(scratch_words(G, R, Ds, Dd, Drle, S),
+                          dtype=torch.int32, device=device)
     step = _kernel("focalsv_region_step")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -102,7 +139,7 @@ def phase_consensus_delta_flat_cuda(
                    G, R, L, Ds, Dd, Drle, S, mec_iters, min_site_depth,
                    min_minor_count, lo_num, lo_den, hi_num, hi_den,
                    purify_window, purify_min_pairs, purify_num, purify_den,
-                   stream)
+                   CLUSTER, stream)
     if err != 0:
         raise RuntimeError(f"region_step kernel launch failed with CUDA "
                            f"error {err} (G={G}, R={R}, L={L}, S={S})")

@@ -1,6 +1,9 @@
-"""Times kernel B1's launch configurations and kernel B4 on one NVIDIA GPU.
+"""Times kernel B1's launch configurations and kernels B4 and B2 on one
+NVIDIA GPU.
 
     python -m focalsv_tpu_torch.testing.kernel_sweep [--full] [--b4-only]
+    python -m focalsv_tpu_torch.testing.kernel_sweep --b2-only [--against DIR]
+        [--phases]
 
 Builds the kernels, prints what ptxas reports (registers, spills, shared
 memory), and for each band width of the main path runs B1 with every
@@ -14,15 +17,27 @@ Beside each B4 time stands its latency floor: the dependent decisions of
 the batch's longest walk (one per state change plus one per 32 ops of a
 run) times one shared-memory load-to-use, which a pointer chase
 (testing/smem_chase.cu) measures on the card.  ``--b4-only`` skips B1's
-sweep.  Needs a CUDA device; exits 1 without one.
+sweep.
+
+``--b2-only`` times B2 alone, at the four delta chunks of chip_smoke.py's
+phase 4 (testing/region_cases.py::pipeline_delta_chunks) and on every case
+of testing/region_cases.py: the kernel with the cluster size it chooses and
+with each cluster size it can take, held against its plain version byte for
+byte.  ``--against DIR`` builds DIR's focalsv_tpu_torch/csrc/region_step.cu
+(another checkout of the repository, whose entry takes no cluster argument)
+and times it in turns with this one (this, other, other, this), the two held
+against each other byte for byte.  ``--phases`` adds B2's time by phase at
+those chunks, from a build that stamps the card's clock at each boundary.  Needs a CUDA device; exits 1 without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -105,12 +120,182 @@ def b4_case(name, dirs, q_len, t_len, d_lo, W, Lq, n_plain, batches,
     return same and host
 
 
+def other_region_step(tree: str):
+    """B2 of another checkout, built from its csrc/region_step.cu, as a
+    function of a chunk buffer and the step's arguments (that entry takes
+    no cluster argument)."""
+    from focalsv_tpu_torch.parallel.wire import flat_layout, flat_layout_rle
+    src = Path(tree) / "focalsv_tpu_torch" / "csrc" / "region_step.cu"
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = _build.BUILD_DIR / f"libfocalsv_b2_against_{tag}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not so.exists():
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                              "-o", str(so), str(src)], capture_output=True,
+                             text=True)
+        for line in (res.stdout + res.stderr).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[b2] against: {line.strip()}", flush=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+    fn = ctypes.CDLL(str(so)).focalsv_region_step
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def step(buf, *, G, R, L, Ds, Dd, Drle, max_sites, mec_iters,
+             min_site_depth, min_minor_count, lo_num, lo_den, hi_num, hi_den,
+             purify_window, purify_min_pairs, purify_num, purify_den):
+        S = max_sites
+        lay = flat_layout_rle(R, S, Drle) if Drle else flat_layout(R, L, S)
+        out = torch.empty((G, lay["__total__"][1]), dtype=torch.uint8,
+                          device=buf.device)
+        scratch = torch.empty(G * 3 * S * -(-R // 32), dtype=torch.int32,
+                              device=buf.device)
+        err = fn(buf.data_ptr(), out.data_ptr(), scratch.data_ptr(), G, R, L,
+                 Ds, Dd, Drle, S, mec_iters, min_site_depth, min_minor_count,
+                 lo_num, lo_den, hi_num, hi_den, purify_window,
+                 purify_min_pairs, purify_num, purify_den,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the other B2 failed: CUDA error {err}")
+        return out
+    return step
+
+
+PHASES = ("bin", "sites", "middle", "carries", "votes", "runs")
+
+
+def b2_phases() -> None:
+    """B2 built with its phase stamps (-DFOCALSV_B2_PHASES; each CTA's
+    thread 0 reads the card's clock at the phase boundaries): at each of
+    phase 4's delta chunks, the median over the chunk's CTAs of each phase's
+    time in us (the leader's alone for the middle section: compaction,
+    alleles, purification, MEC, reads and sites; a CTA past the leader
+    waits through it in `carries`), and the chunk's span from the first
+    stamp to the last."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
+    from focalsv_tpu_torch.parallel.wire import flat_layout, flat_layout_rle
+    from focalsv_tpu_torch.testing import region_cases
+    src = _build.CSRC / "region_step.cu"
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = _build.BUILD_DIR / f"libfocalsv_b2_phases_{tag}.so"
+    if not so.exists():
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                        "-DFOCALSV_B2_PHASES", "-shared", "-o", str(so),
+                        str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).focalsv_region_step
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 19 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for key, buf, args in region_cases.pipeline_delta_chunks():
+        kw = {**rs.STEP_DEFAULTS, **args}
+        G, R, L, S, D = (kw[k] for k in ("G", "R", "L", "max_sites", "Drle"))
+        shape = {k: kw[k] for k in ("G", "R", "L", "Ds", "Dd", "Drle")}
+        nc = region_cuda.launch_plan(**shape, S=S)["cluster"]
+        dev = torch.from_numpy(buf).to("cuda")
+        lay = flat_layout_rle(R, S, D) if D else flat_layout(R, L, S)
+        out = torch.empty((G, lay["__total__"][1]), dtype=torch.uint8,
+                          device="cuda")
+        words = region_cuda.scratch_words(G, R, kw["Ds"], kw["Dd"], D, S)
+        scratch = torch.zeros(words + G * region_cuda.MAX_CLUSTER * 16,
+                              dtype=torch.int32, device="cuda")
+        for _ in range(3):
+            err = fn(dev.data_ptr(), out.data_ptr(), scratch.data_ptr(), G,
+                     R, L, kw["Ds"], kw["Dd"], D, S, kw["mec_iters"],
+                     kw["min_site_depth"], kw["min_minor_count"],
+                     kw["lo_num"], kw["lo_den"], kw["hi_num"], kw["hi_den"],
+                     kw["purify_window"], kw["purify_min_pairs"],
+                     kw["purify_num"], kw["purify_den"], 0,
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"B2 with its phase stamps failed: {err}")
+        torch.cuda.synchronize()
+        same = torch.equal(out, rs.phase_consensus_delta_flat_plain(dev,
+                                                                    **kw))
+        t = scratch[words:].view(torch.int64)[:G * nc * 8].reshape(
+            G * nc, 8)[:, :7].cpu().numpy().astype(np.float64)
+        d = np.diff(t, axis=1) / 1e3
+        leader = np.arange(G * nc) % nc == 0
+        med = [float(np.median(d[leader if i == 2 else slice(None), i]))
+               for i in range(len(PHASES))]
+        span = (t[:, 6].max() - t[:, 0].min()) / 1e3
+        print(f"[b2 phases] {key} G={G} cluster={nc} equals_plain={same} "
+              + " ".join(f"{n}_us={v:.2f}" for n, v in zip(PHASES, med))
+              + f" span_us={span:.2f}", flush=True)
+
+
+def b2_sweep(against: str | None) -> bool:
+    """B2 at phase 4's delta chunks and on every region case: its time at
+    the cluster size it chooses and at every size it can take, against its
+    plain version and (with ``against``) another checkout's B2, in turns."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
+    from focalsv_tpu_torch.testing import region_cases
+    other = other_region_step(against) if against else None
+    cases = [(str(key), buf, args)
+             for key, buf, args in region_cases.pipeline_delta_chunks()]
+    cases += [(name, *region_cases.build(name))
+              for name in sorted(region_cases.CASES)]
+    ok = True
+    for name, buf, args in cases:
+        kw = {**rs.STEP_DEFAULTS, **args}
+        dev = torch.from_numpy(buf).to("cuda")
+        shape = {k: kw[k] for k in ("G", "R", "L", "Ds", "Dd", "Drle")}
+        auto = region_cuda.launch_plan(**shape, S=kw["max_sites"])
+
+        def kernel(cluster=0):
+            region_cuda.CLUSTER = cluster
+            try:
+                return rs.phase_consensus_delta_flat(dev, **kw)
+            finally:
+                region_cuda.CLUSTER = 0
+
+        want = rs.phase_consensus_delta_flat_plain(dev, **kw)
+        same = torch.equal(kernel(), want)
+        line = (f"[b2] {name} G={kw['G']} R={kw['R']} L={kw['L']} "
+                f"Drle={kw['Drle']} cluster={auto['cluster']} "
+                f"smem={auto['smem_bytes']} "
+                f"planes_in_smem={auto['planes_in_smem']} "
+                f"events_in_smem={auto['events_in_smem']}")
+        if other is not None:
+            same = same and torch.equal(other(dev, **kw), want)
+            k1, o1 = time_ms(kernel, 10), time_ms(lambda: other(dev, **kw),
+                                                  10)
+            o2, k2 = time_ms(lambda: other(dev, **kw), 10), time_ms(kernel,
+                                                                    10)
+            line += (f" ms={(k1 + k2) / 2:.4f} ({k1:.4f},{k2:.4f}) "
+                     f"against_ms={(o1 + o2) / 2:.4f} ({o1:.4f},{o2:.4f})")
+        else:
+            line += f" ms={time_ms(kernel, 10):.4f}"
+        for nc in (1, 2, 4):
+            plan = region_cuda.launch_plan(**shape, S=kw["max_sites"],
+                                           cluster=nc)
+            if plan["cluster"] != nc:
+                continue
+            same = same and torch.equal(kernel(nc), want)
+            line += f" cluster{nc}_ms={time_ms(lambda: kernel(nc), 10):.4f}"
+        print(f"{line} equals_plain={same}", flush=True)
+        ok = ok and same
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--full", action="store_true",
                     help="also time the wide score-only bands")
     ap.add_argument("--b4-only", action="store_true",
                     help="skip B1's sweep of cells per thread")
+    ap.add_argument("--b2-only", action="store_true",
+                    help="time B2 alone (phase 4's delta chunks and the "
+                         "region cases)")
+    ap.add_argument("--phases", action="store_true",
+                    help="with --b2-only: also time B2's phases at phase "
+                         "4's delta chunks (a build with phase stamps)")
+    ap.add_argument("--against", metavar="DIR",
+                    help="with --b2-only: also time the B2 of the checkout "
+                         "at DIR, in turns with this one")
     ap.add_argument("--sass", metavar="FILE",
                     help="write the kernels' machine code (cuobjdump -sass) "
                          "to FILE")
@@ -129,6 +314,12 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "Compiling",
                                    "error", "warning")):
             print(f"[build] {line.strip()}", flush=True)
+
+    if args.b2_only:
+        ok = b2_sweep(args.against)
+        if args.phases:
+            b2_phases()
+        return 0 if ok else 1
 
     if args.sass:
         nvcc = _build._nvcc()

@@ -12,7 +12,10 @@ substitutions, deletion runs over sites, reads that cover no site or whose
 first site lies in a later block, several blocks, MECs that settle in
 round 0 and in round 1 and one whose single round changes h, R 1024 with S 512 and with S 1024 (the
 bitplanes in device memory), L 2^18, and the RLE result at its bucket, the
-dense result, an overflowing track and a run that ends on the last column.
+dense result, an overflowing track and a run that ends on the last column;
+runs that meet and cross the column ranges that 2 or 4 CTAs of the kernel
+take, true lengths ending inside the last range, deletion runs over a whole
+range, and a chunk of 51 regions.
 
     from focalsv_tpu_torch.testing.region_cases import CASES, build
     buf, args = build("hifi_blocks")   # args: G, R, L, Ds, Dd, Drle, knobs
@@ -258,6 +261,81 @@ def _case_l262144():
                                  err=0.0005)])
 
 
+def edges_tile(rng):
+    """A region of 16,384 columns (four tiles of the kernel) whose runs meet
+    the edges of the column ranges that 2 or 4 CTAs take (4096, 8192,
+    12288): a homozygous deletion ending at 4096 with substitutions from
+    4096 on, a homozygous deletion across 8192, one starting at 12288 and a
+    hole in the coverage after it; het sites elsewhere phase the reads."""
+    L_true = 16384
+    ref = rng.integers(0, 4, L_true).astype(np.uint8)
+    hole = (12500, 12700)
+    starts, ends = [], []
+    for s in range(0, L_true - 1500, 350):
+        e = min(s + 3000 + int(rng.integers(0, 800)), L_true)
+        if s < hole[1] and e > hole[0]:
+            e = hole[0] if s < hole[0] else e
+            if s < hole[1] and s >= hole[0]:
+                s = hole[1]
+        if e - s > 200:
+            starts.append(s)
+            ends.append(e)
+    haps = rng.integers(0, 2, len(starts))
+    pinned = set(range(4080, 4102)) | set(range(8150, 8230)) | set(
+        range(12288, 12296))
+    sites = [c for c in np.sort(rng.choice(np.arange(200, L_true - 200), 40,
+                                           replace=False))
+             if int(c) not in pinned and not hole[0] <= c < hole[1]]
+    subs, dels = {}, []
+    for r, (s, e) in enumerate(zip(starts, ends)):
+        for a, b in ((4080, 4096), (8150, 8230), (12288, 12296)):
+            if max(a, s) < min(b, e):
+                dels.append((r, max(a, s), min(b, e)))
+        for c in range(4096, 4102):
+            if s <= c < e:
+                subs[(r, c)] = _alt(ref[c], 1 + c % 3)
+        for c in sites:
+            if s <= c < e and haps[r]:
+                subs[(r, int(c))] = _alt(ref[c])
+    return Tile(ref, starts, ends, subs, dels)
+
+
+def _case_range_edges():
+    rng = np.random.default_rng(10)
+    return chunk([edges_tile(rng), None])
+
+
+def _case_ltrue_in_last_range():
+    # true lengths past the last range's start (12288 of 16384, and one
+    # column past it) with their uncovered tails
+    rng = np.random.default_rng(11)
+    return chunk([haplotype_tile(rng, 14000, 40, 3000, 20, tail=200),
+                  haplotype_tile(rng, 12289, 30, 2500, 10, tail=90)])
+
+
+def _case_del_spans_range():
+    # deletion runs over a whole range of 4 CTAs ([4096, 8192)) and of 2
+    # ([0, 8192)), in the hap-0 reads
+    rng = np.random.default_rng(12)
+    t = haplotype_tile(rng, 16384, 48, 3000, 30)
+    starts = list(t.row_starts) + [2000] * 6 + [0] * 6
+    ends = list(t.row_starts + t.row_lens) + [10000] * 6 + [9000] * 6
+    subs = {(int(r), int(c)): int(v) for c, r, v in zip(*t.subs)}
+    n = len(t.row_starts)
+    dels = [tuple(int(x) for x in d) for d in zip(*t.dels)]
+    dels += [(n + i, 3000, 8300) for i in range(0, 6, 2)]
+    dels += [(n + 6 + i, 100, 8400) for i in range(0, 6, 2)]
+    return chunk([Tile(t.ref_codes, starts, ends, subs, dels)])
+
+
+def _case_g51():
+    # the batch of the L 131072 chunk: 51 regions, 3 of them padded slots
+    rng = np.random.default_rng(13)
+    tiles = [haplotype_tile(rng, int(rng.integers(3000, 8192)), 16, 1500, 4)
+             for _ in range(48)]
+    return chunk(tiles + [None] * 3)
+
+
 CASES = {
     "hifi_blocks": _case_hifi_blocks,
     "hifi_dense": _case_hifi_dense,
@@ -272,7 +350,45 @@ CASES = {
     "r1024_s512": _case_r1024_s512,
     "r1024_s1024": _case_r1024_s1024,
     "l262144": _case_l262144,
+    "range_edges": _case_range_edges,
+    "ltrue_in_last_range": _case_ltrue_in_last_range,
+    "del_spans_range": _case_del_spans_range,
+    "g51": _case_g51,
 }
+
+
+def pipeline_delta_chunks(n_regions: int = 8, seed0: int = 1000):
+    """The delta chunks of chip_smoke.py's phase 4: simulated HiFi regions
+    of bench.py's sizes (15, 30, 50, 100 kb, cycling) at 30x from seeds
+    seed0 + i, tiled by the pipeline's build_tile and packed one chunk a
+    bucket at the pipeline's batch size for one device.  Returns
+    [(key, buf, args)] in bucket order, args as build() gives them."""
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.parallel import region_step as rs
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    from focalsv_tpu_torch.testing import simulate as sim
+    cfg = preset("HIFI")
+    sizes = (15_000, 30_000, 50_000, 100_000)
+    tiles = []
+    for i in range(n_regions):
+        L = sizes[i % len(sizes)]
+        rg = sim.simulate_region(seed=seed0 + i, ref_len=L, coverage=30.0,
+                                 n_snps=max(10, L // 1200))
+        tiles.append(dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, cfg))
+    buckets: dict = {}
+    for i, t in enumerate(tiles):
+        key = dx._bucket_key(t, cfg)
+        if key is not None and key[0] == "delta":
+            buckets.setdefault(key, []).append(i)
+    out = []
+    for key, idxs in sorted(buckets.items()):
+        G = dx._batch_size(key, cfg, 1)
+        chunk_ = idxs + [len(tiles)] * (G - len(idxs))
+        _, R, L, Ds, Dd = key
+        out.append((key, dx.pack_chunk(tiles + [None], chunk_, key, G),
+                    dict(rs.phase_consensus_kwargs(cfg.phasing), G=G, R=R,
+                         L=L, Ds=Ds, Dd=Dd, Drle=dx.drle_of(key))))
+    return out
 
 
 def build(name: str):

@@ -410,3 +410,58 @@ def test_region_kernel_on_hifi_chunk(cuda, drle):
                       "overflow": 2}[drle],
                 **rs.phase_consensus_kwargs(cfg.phasing))
     _region_kernel_vs_plain(cuda, buf, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("name", ["hifi_blocks", "hifi_overflow",
+                                  "range_edges", "l262144"])
+def test_region_kernel_at_each_cluster_size(cuda, monkeypatch, cluster,
+                                            name):
+    """B2 with 1, 2 and 4 CTAs a region (as many as the region has tiles)
+    against its plain version: runs that cross a CTA's range, overflowing
+    tracks, a long region."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
+    buf, args = region_cases.build(name)
+    kw = {**rs.STEP_DEFAULTS, **args}
+    plan = region_cuda.launch_plan(
+        **{k: kw[k] for k in ("G", "R", "L", "Ds", "Dd", "Drle")},
+        S=kw["max_sites"], cluster=cluster)
+    assert plan["cluster"] == min(cluster, -(-kw["L"] // 4096))
+    monkeypatch.setattr(region_cuda, "CLUSTER", cluster)
+    _region_kernel_vs_plain(cuda, buf, args)
+
+
+@pytest.mark.cuda
+def test_named_card_runs_without_a_mesh(cuda, monkeypatch, tmp_path):
+    """Device mode on a named card builds no mesh over the other cards,
+    whatever their count, and writes the golden HIFI VCF on that card."""
+    from pathlib import Path
+
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import mesh as pmesh
+    from focalsv_tpu_torch.pipeline import cli
+    d = Path(__file__).resolve().parent / "data" / "golden" / "hifi"
+    asked = []
+    real = pmesh.mesh_for
+
+    def spy(device, count, procs=1):
+        mesh = real(device, count, procs)
+        asked.append((str(device), count, procs, mesh))
+        return mesh
+
+    monkeypatch.setattr(pmesh, "mesh_for", spy)
+    monkeypatch.setenv("FOCALSV_TORCH_DEVICE", "cuda:0")
+    before = region_cuda.launches
+    rc = cli.main(["--bam_file", str(d / "reads.bam"), "--ref_file",
+                   str(d / "ref.fa"), "--target_bed", str(d / "regions.bed"),
+                   "--out_dir", str(tmp_path), "--data_type", "HIFI",
+                   "--num_threads", "2", "--execution", "device"])
+    assert rc == 0
+    assert asked and all(a[0] == "cuda:0" and a[3] is None for a in asked)
+    assert pmesh.mesh_for(torch.device("cuda:0"), 8) is None
+    assert pmesh.mesh_for(torch.device("cuda"), 8).size == 8
+    assert region_cuda.launches > before
+    assert ((tmp_path / "FocalSV_Final_SV.vcf").read_text()
+            == (d / "expected.vcf").read_text())

@@ -158,6 +158,21 @@ GUARD = BLOCK + textwrap.dedent('''
     fn, args = dryrun.entry()
     assert fn(*args)[0].shape == (8,)
     dryrun.dryrun_multichip(2)
+
+    # the fetch timing and kernel B2's source built for the CPU
+    import torch
+
+    from focalsv_tpu_torch.testing import fetch_timing, host_kernel
+    from focalsv_tpu_torch.testing import region_cases
+    timed = fetch_timing.time_fetches(
+        f"{golden}/reads.bam", [("chr21", 10000, 26000),
+                                ("chr21", 34000, 48000)], reps=1)
+    assert timed["same"] and timed["records"] > 0, timed
+    from focalsv_tpu_torch.parallel import region_step as rs
+    buf, args = region_cases.build("mec_one_round")
+    kw = {**rs.STEP_DEFAULTS, **args}
+    want = rs.phase_consensus_delta_flat_plain(torch.from_numpy(buf), **kw)
+    assert (host_kernel.region_step(buf, **kw) == want.numpy()).all()
     print("BLOCKED", blocked)
     assert not blocked, blocked
     assert sys.modules.get("jax") is None

@@ -119,10 +119,10 @@ def _tile_sweep_counts(r, L, T):
     return counts
 
 
-def _keyed_sites(counts, ltrue, kw):
-    """The kernel's site search: each het column's 64-bit key (balance bits,
-    ~column, a0, a1), the largest key of each strip, compacted in strip
-    order.  Returns [(column, a0, a1)]."""
+def _strip_keys(counts, ltrue, kw, lo=0, hi=None):
+    """The kernel's site search over columns [lo, hi): each het column's
+    64-bit key (balance bits, ~column, a0, a1), the largest key of each
+    strip (0 where none)."""
     S = kw["max_sites"]
     L = len(counts)
     col = np.arange(L)
@@ -138,15 +138,27 @@ def _keyed_sites(counts, ltrue, kw):
            & (top1 >= kw["min_minor_count"]))
     bal = top1.astype(np.float32) / np.maximum(n0 + top1, 1).astype(
         np.float32)
-    het &= bal > 0
+    het &= (bal > 0) & (col >= lo) & (col < (L if hi is None else hi))
     key = ((bal.view(np.uint32).astype(np.uint64) << np.uint64(32))
            | ((((1 << 26) - 1 - col) << 6) | (a0 << 3) | a1).astype(
                np.uint64))
     strip = max((int(ltrue) + S - 1) // S, 1)
     best = np.zeros(S, np.uint64)
     np.maximum.at(best, np.minimum(col // strip, S - 1)[het], key[het])
+    return best
+
+
+def _sites_of(best):
+    """[(column, a0, a1)] of the strips' keys, in strip order."""
     lows = [int(k) & 0xFFFFFFFF for k in best if k]
     return [((1 << 26) - 1 - (lo >> 6), (lo >> 3) & 7, lo & 7) for lo in lows]
+
+
+def _keyed_sites(counts, ltrue, kw):
+    """The kernel's site search: each het column's 64-bit key (balance bits,
+    ~column, a0, a1), the largest key of each strip, compacted in strip
+    order.  Returns [(column, a0, a1)]."""
+    return _sites_of(_strip_keys(counts, ltrue, kw))
 
 
 @pytest.mark.parametrize("name", ["hifi_blocks", "crowded_strips", "lengths",
@@ -335,3 +347,307 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
             torch.zeros(lay["__total__"][1], dtype=torch.uint8),
             **{**kw, "L": 4100, "Drle": 0})
     assert region_cuda.launches == 0
+
+
+# -- numpy models of the redesigned kernel: events binned by tile, column
+# ranges of a cluster, both votes from one packed sweep ---------------------
+
+MODEL_CASES = ["hifi_blocks", "hifi_overflow", "lengths", "range_edges",
+               "ltrue_in_last_range", "del_spans_range"]
+
+
+def _events(r, L):
+    """The kernel's events of a region: (column, kind, read), kinds 0/1 a
+    valid read's span start/end, 2/3 a deletion run's start/end, 4 + s a
+    substitution of symbol s; those outside [0, L) dropped."""
+    rv = r["rv"]
+    reads = np.arange(len(rv))
+    wd, ws = r["del_read"] >= 0, r["sub_read"] >= 0
+    cols = [r["starts"][rv], r["ends"][rv], r["del_a"][wd], r["del_b"][wd],
+            r["sub_pos"][ws]]
+    kinds = [np.zeros(rv.sum(), int), np.ones(rv.sum(), int),
+             np.full(wd.sum(), 2), np.full(wd.sum(), 3),
+             4 + np.minimum(r["sub_sym"][ws], 4)]
+    who = [reads[rv], reads[rv], r["del_read"][wd], r["del_read"][wd],
+           r["sub_read"][ws]]
+    col, kind, read = (np.concatenate(x).astype(np.int64)
+                       for x in (cols, kinds, who))
+    keep = (col >= 0) & (col < L)
+    return col[keep], kind[keep], read[keep]
+
+
+def _bin(col, T, rng):
+    """A counting sort of the events by tile (histogram, scan, scatter),
+    each bucket in an arbitrary order, as the kernel's atomics leave it.
+    Returns the tile offsets and the events' order."""
+    tile = col // T
+    n_tiles = int(tile.max(initial=-1)) + 1
+    off = np.concatenate([[0], np.cumsum(np.bincount(tile,
+                                                     minlength=n_tiles))])
+    order = np.empty(len(col), np.int64)
+    cur = off[:-1].copy()
+    for e in rng.permutation(len(col)):
+        order[cur[tile[e]]] = e
+        cur[tile[e]] += 1
+    return off, order
+
+
+def _signed(kind, w):
+    return np.where((kind == 1) | (kind == 3), -w, w)
+
+
+def _tile_dif(col, kind, w, t0, T):
+    """A tile's difference arrays (span, deletion, 5 substitution rows)
+    from its events, int32 as the kernel's."""
+    dif = np.zeros((7, T), np.int32)
+    row = np.where(kind < 2, 0, np.where(kind < 4, 1, kind - 2))
+    np.add.at(dif, (row, col - t0), _signed(kind, w).astype(np.int32))
+    return dif
+
+
+def _counts_from_bins(r, L, T, weight, rng, tiles=None):
+    """Column counts (L, 7): span and deletion counts and the 5
+    substitution counts, each tile rebuilt from its bucket alone, its carry
+    the sum of the tile sums before it, the tiles taken in the order given
+    (all, in reverse, by default).  weight(kind, read) weights an event."""
+    col, kind, read = _events(r, L)
+    w = weight(kind, read)
+    off, order = _bin(col, T, rng)
+    n_tiles = len(off) - 1
+    sums = np.zeros((n_tiles + 1, 2), np.int64)
+    for t in range(n_tiles):
+        e = order[off[t]:off[t + 1]]
+        s = _signed(kind[e], w[e])
+        sums[t + 1] = (s[kind[e] < 2].sum(), s[(kind[e] >= 2)
+                                                & (kind[e] < 4)].sum())
+    carry = np.cumsum(sums, 0).astype(np.int32)
+    out = np.zeros((L, 7), np.int32)
+    for t in (reversed(range(n_tiles)) if tiles is None else tiles):
+        e = order[off[t]:off[t + 1]]
+        dif = _tile_dif(col[e], kind[e], w[e], t * T, T)
+        n = min(T, L - t * T)
+        out[t * T:t * T + n, :2] = (np.cumsum(dif[:2], 1, dtype=np.int32)
+                                    + carry[t][:, None])[:, :n].T
+        out[t * T:t * T + n, 2:] = dif[2:, :n].T
+    return out
+
+
+def _site_counts(c):
+    """(L, 5) allele counts {A, C, G, T, DEL} from the (L, 7) columns."""
+    sub = c[:, 2:].astype(np.int64)
+    base = c[:, 0] - c[:, 1] - sub.sum(1)
+    return base, sub
+
+
+@pytest.mark.parametrize("T", [64, 1000, 4096])
+def test_events_binned_by_tile_match_jax(T):
+    """Each tile rebuilt from its own bucket of a counting sort, its carry
+    taken from the sums of the tiles before it, the tiles in reverse: the
+    sites and their alleles are the JAX function's."""
+    rng = np.random.default_rng(T)
+    code = (0, 1, 2, 3, 254)
+    for name in MODEL_CASES:
+        buf, args = region_cases.build(name)
+        regions, kw = _regions(buf, args)
+        for r in regions:
+            site_pos, *_rest = _jax_region(r, kw)
+            sa0, sa1 = _rest[5], _rest[6]
+            c = _counts_from_bins(r, args["L"], T,
+                                  lambda k, rd: np.ones(len(k), np.int64),
+                                  rng)
+            base, sub = _site_counts(c)
+            counts = np.zeros((args["L"], 5), np.int64)
+            for s in range(4):
+                counts[:, s] = np.where(r["ref"] == s, base, 0) + sub[:, s]
+            counts[:, 4] = c[:, 1]
+            sites = _keyed_sites(counts, r["ltrue"], kw)
+            n = len(sites)
+            got = sorted((col, code[a0], code[a1]) for col, a0, a1 in sites)
+            want = sorted(zip(site_pos[:n].tolist(), sa0[:n].tolist(),
+                              sa1[:n].tolist()))
+            assert got == want, name
+            assert (site_pos[n:] == 0).all()
+
+
+def _class_weight(hp, rv):
+    """The vote's packed weight of each read: hp 0 votes in both tracks (1 +
+    65536), hp 1 in the first (1), hp 2 in the second (65536), a read that
+    is not valid in none."""
+    cls = np.where(rv, np.where(hp == 0, 3, hp), 0).astype(np.int64)
+    w = (cls & 1) + ((cls & 2) << 15)
+
+    def weight(kind, read):
+        return np.where(read < len(hp), w[np.minimum(read, len(hp) - 1)], 0)
+    return weight
+
+
+def _unpack(x):
+    """The two 16-bit halves of packed int32 counts."""
+    x = x.astype(np.int64)
+    lo = ((x & 0xFFFF) ^ 0x8000) - 0x8000
+    return lo, (x - lo) >> 16
+
+
+def _states(c, ref, ltrue, L):
+    """Both tracks' (symbol, covered, state, deviates) from the (L, 7)
+    packed columns, as the kernel votes them."""
+    out = []
+    cols = np.arange(L)
+    for half in (0, 1):
+        v = np.stack([_unpack(c[:, i])[half] for i in range(7)], 1)
+        base = v[:, 0] - v[:, 1] - v[:, 2:].sum(1)
+        cnt = np.zeros((L, 6), np.int64)
+        for s in range(5):
+            cnt[:, s] = np.where(ref == s, base, 0) + v[:, 2 + s]
+        cnt[:, 5] = v[:, 1]
+        sym = np.argmax(cnt, 1)
+        covered = cnt.sum(1) > 0
+        state = np.where(covered, sym, 7)
+        dv = (cols < ltrue) & ~(covered & (sym == ref))
+        out.append((sym, covered, state, dv))
+    return out
+
+
+def test_both_votes_from_one_packed_sweep_match_jax():
+    """One sweep of packed difference arrays (hp 0 weighted 65537, hp 1
+    1, hp 2 65536) gives both tracks' symbols and coverage, the JAX
+    function's, with the tiles of 4096 columns in reverse."""
+    rng = np.random.default_rng(0)
+    for name in MODEL_CASES + ["hifi_dense"]:
+        buf, args = region_cases.build(name)
+        regions, kw = _regions(buf, args)
+        for r in regions:
+            _sp, _n, _A, hp, sym, cov, *_ = _jax_region(r, kw)
+            c = _counts_from_bins(r, args["L"], 4096,
+                                  _class_weight(hp, r["rv"]), rng)
+            for k, (s, covered, _st, _dv) in enumerate(
+                    _states(c, r["ref"], r["ltrue"], args["L"])):
+                np.testing.assert_array_equal(s, sym[k])
+                np.testing.assert_array_equal(covered, cov[k])
+
+
+def _range_runs(state, dv, lo, hi, before, D):
+    """One CTA's runs over [lo, hi): a run starts at a deviating column
+    after one that does not deviate or holds another state (`before`: the
+    column before lo as (state, deviates)).  Returns its first D + 1 runs as
+    (start, state, deviating columns of the range before it) and the
+    range's boundary and deviating-column counts."""
+    runs, nb, nd = [], 0, 0
+    ps, pd = before
+    for col in range(lo, hi):
+        if dv[col] and (not pd or state[col] != ps):
+            if nb <= D:
+                runs.append((col, int(state[col]), nd))
+            nb += 1
+        nd += int(dv[col])
+        ps, pd = int(state[col]), bool(dv[col])
+    return runs, nb, nd
+
+
+def _column_before(r, lo, L, weight):
+    """Both tracks' (state, deviates) at column lo - 1, from the events
+    before lo alone: the span and deletion carries and the substitutions at
+    lo - 1 (what a CTA whose range starts at lo computes itself)."""
+    col, kind, read = _events(r, L)
+    w = _signed(kind, weight(kind, read))
+    before = col < lo
+    c = np.zeros((1, 7), np.int64)
+    c[0, 0] = w[before & (kind < 2)].sum()
+    c[0, 1] = w[before & (kind >= 2) & (kind < 4)].sum()
+    for s in range(5):
+        c[0, 2 + s] = w[(col == lo - 1) & (kind == 4 + s)].sum()
+    c = c.astype(np.int32)
+    return [(int(st[0]), bool(dv[0])) for _s, _c, st, dv in
+            _states(c, r["ref"][lo - 1:lo], r["ltrue"] - (lo - 1), 1)]
+
+
+@pytest.mark.parametrize("n_ranges", [2, 4])
+def test_column_ranges_merge_keys_and_offset_runs(n_ranges):
+    """Columns split into 2 and 4 ranges of whole tiles of 4096, each swept
+    from the carries of the events before it: the strips' keys of the
+    ranges merged by their maximum give the JAX function's sites, and each
+    range's runs, started from the state of the column before it (from its
+    own events) and offset by the boundary and deviating-column counts of
+    the ranges before it, give the JAX function's RLE tracks byte for
+    byte."""
+    rng = np.random.default_rng(n_ranges)
+    code = (0, 1, 2, 3, 254)
+    split = 0
+    for name in MODEL_CASES:
+        buf, args, flat = _jax_flat(name)
+        regions, kw = _regions(buf, args)
+        L, D, T = args["L"], args["Drle"], 4096
+        lay = flat_layout_rle(args["R"], kw["max_sites"], D)
+        n_tiles = -(-L // T)
+        bounds = [min(k * n_tiles // n_ranges * T, L)
+                  for k in range(n_ranges + 1)]
+        split += len(set(bounds)) - 1 == n_ranges
+
+        def sect(g, key, dt, *shape):
+            a, b = lay[key]
+            return flat[g, a:b].view(dt).reshape(*shape)
+
+        for g, r in enumerate(regions):
+            site_pos, _n, _A, hp, _sym, _cov, sa0, sa1, *_ = _jax_region(r,
+                                                                         kw)
+            ones = lambda k, rd: np.ones(len(k), np.int64)  # noqa: E731
+            c = _counts_from_bins(r, L, T, ones, rng)
+            base, sub = _site_counts(c)
+            counts = np.zeros((L, 5), np.int64)
+            for s in range(4):
+                counts[:, s] = np.where(r["ref"] == s, base, 0) + sub[:, s]
+            counts[:, 4] = c[:, 1]
+            best = np.zeros(kw["max_sites"], np.uint64)
+            for lo, hi in zip(bounds, bounds[1:]):
+                best = np.maximum(best, _strip_keys(counts, r["ltrue"], kw,
+                                                    lo, hi))
+            sites = _sites_of(best)
+            n = len(sites)
+            assert [(col, code[a0], code[a1]) for col, a0, a1 in sites] == \
+                sorted(zip(site_pos[:n].tolist(), sa0[:n].tolist(),
+                           sa1[:n].tolist()))
+            weight = _class_weight(hp, r["rv"])
+            states = _states(_counts_from_bins(r, L, T, weight, rng),
+                             r["ref"], r["ltrue"], L)
+            for k, (_s, _c, state, dv) in enumerate(states):
+                runs, n_runs, total = {}, 0, 0
+                for lo, hi in zip(bounds, bounds[1:]):
+                    before = (_column_before(r, lo, L, weight)[k] if lo
+                              else (255, False))
+                    rr, nb, nd = _range_runs(state, dv, lo, hi, before, D)
+                    for i, (s0, st, ed) in enumerate(rr):
+                        if n_runs + i <= D:
+                            runs[n_runs + i] = (s0, st, total + ed)
+                    n_runs += nb
+                    total += nd
+                cd = [runs[b][2] if b in runs else total
+                      for b in range(D + 1)]
+                assert n_runs == sect(g, "n_runs", np.int32, 2)[k], name
+                assert [runs[b][0] if b in runs else L for b in range(D)] \
+                    == sect(g, "run_start", np.int32, 2, D)[k].tolist()
+                assert [cd[b + 1] - cd[b] for b in range(D)] == \
+                    sect(g, "run_len", np.int32, 2, D)[k].tolist()
+                assert [runs[b][1] if b in runs else int(state[L - 1])
+                        for b in range(D)] == \
+                    sect(g, "run_val", np.uint8, 2, D)[k].tolist()
+    assert split >= 4          # most cases have n_ranges ranges
+
+
+# -- the kernel's own source, built for the CPU (testing/host_kernel.py) ----
+
+@pytest.mark.parametrize("name,cluster", [
+    ("zero_and_one_het", 0), ("mec_one_round", 1), ("bands_half", 1),
+    ("hifi_blocks", 1), ("hifi_blocks", 2), ("hifi_dense", 0),
+    ("hifi_overflow", 4), ("range_edges", 2), ("range_edges", 4),
+    ("ltrue_in_last_range", 4), ("del_spans_range", 2), ("r1024_s1024", 1),
+])
+def test_kernel_source_on_the_cpu_matches_plain(name, cluster):
+    """csrc/region_step.cu compiled by g++ against the CPU stand-in for the
+    CUDA runtime, with 1, 2 or 4 CTAs a region: the bytes of the plain
+    version (which the other tests hold to the JAX package)."""
+    from focalsv_tpu_torch.testing import host_kernel
+    buf, args = region_cases.build(name)
+    kw = {**trs.STEP_DEFAULTS, **args}
+    want = trs.phase_consensus_delta_flat_plain(torch.from_numpy(buf), **kw)
+    np.testing.assert_array_equal(
+        host_kernel.region_step(buf, **kw, cluster=cluster), want.numpy())
