@@ -87,6 +87,20 @@
 //    the votes become ANDs and popcounts of 32 reads at a time.
 // Byte-exactness: the balance is __fdiv_rn (no fast math); argmax takes the
 // first maximum; every comparison is the plain version's integer one.
+//
+// What the card taught (measured on an H100, PERF.md PR 6):
+//  - 64-bit atomicMax from several CTAs into the leader's keys through
+//    distributed shared memory gave other keys than the plain version where
+//    two columns of one strip met, at 2 and 4 CTAs a region (the CPU build
+//    of testing/host_kernel.py could not show it).  Each CTA keeps its own
+//    keys; the leader takes the largest of each strip after a cluster
+//    barrier, with plain loads.
+//  - A thread's 8 columns stored side by side put a warp's scalar reads of
+//    a row 32 bytes apart, 8 threads to a bank: the substitution rows cost
+//    more than the rest of a tile.  slot_of lays them out for int4 reads
+//    without conflicts.
+//  - Most columns carry no substitution and no deletion: they skip the het
+//    test and take their vote from the span count alone.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -62,8 +62,6 @@ struct cudaLaunchConfig_t {
 #define __launch_bounds__(...)
 #define __shared__ thread_local
 #define __align__(n)
-#define __restrict__
-#define __noinline__
 
 struct EmuWarp {
   std::barrier<> bar{32};
@@ -106,17 +104,6 @@ inline int __syncthreads_or(int p) {
   b->bar->arrive_and_wait();
   return r;
 }
-inline int __syncthreads_count(int p) {
-  EmuBlock* b = emu_blk;
-  b->bar->arrive_and_wait();
-  if (p) b->orv.fetch_add(1);
-  b->bar->arrive_and_wait();
-  const int r = b->orv.load();
-  b->bar->arrive_and_wait();
-  if (threadIdx.x == 0) b->orv.store(0);
-  b->bar->arrive_and_wait();
-  return r;
-}
 
 inline EmuWarp& emu_warp() { return emu_blk->warps[threadIdx.x >> 5]; }
 template <class T>
@@ -133,7 +120,6 @@ inline T emu_exchange(T v, int src) {
   std::memcpy(&r, &raw, sizeof(T));
   return r;
 }
-inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp().bar.arrive_and_wait(); }
 template <class T>
 inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
   const int lane = threadIdx.x & 31;
@@ -144,12 +130,6 @@ inline T __shfl_up_sync(unsigned, T v, unsigned d, int width = 32) {
   const int lane = threadIdx.x & 31;
   const int s = lane - (int)d;
   return emu_exchange(v, s < (lane & ~(width - 1)) ? lane : s);
-}
-template <class T>
-inline T __shfl_down_sync(unsigned, T v, unsigned d, int width = 32) {
-  const int lane = threadIdx.x & 31;
-  const int s = lane + (int)d;
-  return emu_exchange(v, s >= (lane & ~(width - 1)) + width ? lane : s);
 }
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int m, int width = 32) {
@@ -166,35 +146,19 @@ inline unsigned __ballot_sync(unsigned, int p) {
   w.bar.arrive_and_wait();
   return r;
 }
-inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
-inline int __all_sync(unsigned m, int p) { return __ballot_sync(m, p) == 0xffffffffu; }
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
-inline int __popcll(unsigned long long v) { return __builtin_popcountll(v); }
-inline int __ffs(int v) { return __builtin_ffs(v); }
-inline int __clz(int v) { return v ? __builtin_clz((unsigned)v) : 32; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
-inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
-template <class T> inline T __ldg(const T* p) { return *p; }
 
 template <class T> inline T atomicAdd(T* a, T v) { return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST); }
-template <class T> inline T atomicSub(T* a, T v) { return __atomic_fetch_sub(a, v, __ATOMIC_SEQ_CST); }
 template <class T> inline T atomicOr(T* a, T v) { return __atomic_fetch_or(a, v, __ATOMIC_SEQ_CST); }
 template <class T> inline T atomicAnd(T* a, T v) { return __atomic_fetch_and(a, v, __ATOMIC_SEQ_CST); }
-template <class T> inline T atomicExch(T* a, T v) { return __atomic_exchange_n(a, v, __ATOMIC_SEQ_CST); }
 template <class T> inline T atomicMax(T* a, T v) {
   T old = __atomic_load_n(a, __ATOMIC_SEQ_CST);
   while (old < v && !__atomic_compare_exchange_n(a, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {}
   return old;
 }
-template <class T> inline T atomicMin(T* a, T v) {
-  T old = __atomic_load_n(a, __ATOMIC_SEQ_CST);
-  while (old > v && !__atomic_compare_exchange_n(a, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {}
-  return old;
-}
-inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
-inline void __threadfence_block() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
@@ -212,7 +176,6 @@ template <class F> inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* 
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { cudaError_t e = emu_last; emu_last = cudaSuccess; return e; }
-inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
 struct EmuThreadArg {
   std::function<void()>* body;
@@ -233,15 +196,12 @@ inline void* emu_thread_main(void* a) {
   return nullptr;
 }
 
-inline int emu_max_smem_used = 0;
-
 inline cudaError_t emu_launch(std::function<void()> body, dim3 grid, dim3 block,
                               size_t smem, unsigned nc) {
   if ((int)smem > emu_smem_optin || block.x > 1024 || grid.x % nc) {
     emu_last = cudaErrorInvalidValue;
     return emu_last;
   }
-  if ((int)smem > emu_max_smem_used) emu_max_smem_used = (int)smem;
   gridDim = grid;
   blockDim = block;
   for (unsigned c0 = 0; c0 < grid.x; c0 += nc) {
@@ -291,16 +251,6 @@ inline cudaError_t emu_launch(std::function<void()> body, dim3 grid, dim3 block,
   return cudaSuccess;
 }
 
-template <class... A, size_t... I>
-inline void emu_call(void (*f)(A...), void** args, std::index_sequence<I...>) {
-  f(*static_cast<A*>(args[I])...);
-}
-template <class... A>
-inline cudaError_t cudaLaunchKernel(void (*f)(A...), dim3 grid, dim3 block,
-                                    void** args, size_t smem, cudaStream_t) {
-  return emu_launch([=] { emu_call(f, args, std::index_sequence_for<A...>{}); },
-                    grid, block, smem, 1);
-}
 template <class... E, class... A>
 inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
                                       void (*f)(E...), A&&... args) {
