@@ -833,7 +833,7 @@ def slice_run(regions, work: str):
             f"{n / host['wall_s']:.3f} regions/s regions_host_s="
             f"{host['stages'].get('regions_host', 0.0):.3f}")
     # the BAM fetch of the 32 regions, one thread: the scan from the first
-    # index chunk against the scan restarted at every chunk (before PR 6)
+    # index chunk against the scan restarted at every chunk it replaced
     from focalsv_tpu_torch.testing import fetch_timing
     with open(beds[n_all]) as f:
         queries = [(c, int(a), int(b)) for c, a, b in

@@ -88,7 +88,7 @@
 // Byte-exactness: the balance is __fdiv_rn (no fast math); argmax takes the
 // first maximum; every comparison is the plain version's integer one.
 //
-// What the card taught (measured on an H100, PERF.md PR 6):
+// What the card taught (measured on an H100, PERF.md section 6):
 //  - 64-bit atomicMax from several CTAs into the leader's keys through
 //    distributed shared memory gave other keys than the plain version where
 //    two columns of one strip met, at 2 and 4 CTAs a region (the CPU build
@@ -1380,7 +1380,7 @@ bool cluster_fits(const cudaLaunchConfig_t& cfg, int nc) {
 // with a tile or more a CTA and G * nc within the SMs, or past them (a
 // second wave) where each CTA keeps 8 tiles or more, unless `cluster` names
 // one.  On an H100 that is 2 at phase 4's chunks of G 64 and 4 at its G 51,
-// L 131072 (PERF.md, PR 6).  The dense tracks are written by one CTA.  A
+// L 131072 (PERF.md section 6).  The dense tracks are written by one CTA.  A
 // cluster that cannot be placed is halved.
 int plan(Params& p, int cluster, cudaLaunchConfig_t& cfg,
          cudaLaunchAttribute* attr, cudaStream_t stream) {
