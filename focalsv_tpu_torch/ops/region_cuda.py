@@ -26,8 +26,8 @@ _lock = threading.Lock()
 _fns: dict = {}
 launches = 0             # launches of kernel B2
 # CTAs a region (a thread-block cluster of 1, 2 or 4); 0 lets the kernel
-# choose from the chunk's size and the card's SM count.  kernel_sweep sets it
-# to time each size.
+# choose from the chunk's size and the card's SM count.  kernel_sweep and the
+# card tests set it to run each size.
 CLUSTER = 0
 MAX_CLUSTER = 4          # the kernel's kMaxCluster
 MAX_READS = 32767        # the kernel's kMaxReads: a count fits 16 bits
@@ -60,7 +60,7 @@ def launch_plan(G: int, R: int, L: int, Ds: int, Dd: int, Drle: int,
     """How the kernel launches a chunk on the current card: CTAs a region
     (the thread-block cluster), dynamic shared memory a CTA, whether the
     bitplanes and the events live in shared memory, and the kernel's
-    registers and local (spilled) bytes a thread."""
+    registers and local-memory bytes (stack frame and spills) a thread."""
     plan = (ctypes.c_int * 6)()
     err = _kernel("focalsv_region_step_plan")(
         G, R, L, Ds, Dd, Drle, S, CLUSTER if cluster is None else cluster,
