@@ -9,7 +9,8 @@ on the card in phases, and exits non-zero at the first phase that fails:
    limit as nvidia-smi reports them; the port's g++-built host libraries
    (native/*.cpp) must build and load;
 2. build the kernels (csrc/*.cu: B1, the banded DP, B4, its traceback, and
-   B2, the delta region step) with nvcc for sm_90a, one nvcc per source;
+   B2 and B3, the delta and the dense region step) with nvcc for sm_90a, one
+   nvcc per source;
 3. B1 against its plain PyTorch version, both on the card, byte for byte
    (tolerance 0), at the shapes of the main path: OLC read polish at
    batches of 128, 2 and 1 pairs, aligner gap fill, a leading-insertion
@@ -23,12 +24,13 @@ on the card in phases, and exits non-zero at the first phase that fails:
    on crafted direction bytes with gap runs longer than 32 ops and longer
    than a tile (testing/dp_cases.py::walk_cases);
 4. the region step on the card against the same step on the CPU, byte for
-   byte: HiFi 30x delta chunks at 15-100 kb and one noisy CLR dense chunk;
-   at every delta chunk and every case of testing/region_cases.py, B2
+   byte: HiFi 30x delta chunks at 15-100 kb and noisy CLR tiles made dense;
+   at every delta chunk and every delta case of testing/region_cases.py, B2
    against its plain version on the card and on the CPU, byte for byte,
-   and both timed on the card in turns, with B2's launch (CTAs a region,
-   shared memory) beside its time; two dispatches of each delta chunk split
-   into pinning, copy in, kernel and copy out;
+   and at every dense chunk and every dense case B3 likewise, both timed on
+   the card in turns, with the kernel's launch (CTAs a region, shared
+   memory) beside its time; two dispatches of each delta chunk split into
+   pinning, copy in, kernel and copy out;
 5. the golden HIFI fixture through the port's CLI in device mode, equal to
    tests/data/golden/hifi/expected.vcf byte for byte;
 6. 32 simulated HiFi regions (15-100 kb at 30x) as BAM + FASTA + BED through
@@ -38,6 +40,15 @@ on the card in phases, and exits non-zero at the first phase that fails:
    have been launched; regions/s beside tile_build_s in each mode, and the
    BAM fetch of the 32 regions by one scan against a scan restarted at
    every index chunk (records equal in order);
+6b. the noisy-read slice: 8 simulated regions cycling the same sizes at 30x
+   with 10 % substitutions, 3 % insertions and 3 % deletions (seeds 3000+i),
+   whose tiles all take the dense encoding, as BAM + FASTA + BED through
+   run_target_mode under the ONT preset in device mode on the card, in host
+   mode, and in device mode on the CPU (FOCALSV_TORCH_DEVICE=cpu, the plain
+   version, in a subprocess): the card's VCF must equal the CPU's, B3 must
+   launch once per chunk and no region may fall back to the host; the host
+   VCF is compared and the result printed; B3 against its plain version at
+   every noisy chunk, timed in turns;
 7. the same 32 regions as per-region BAM and reference files through the
    multi-process executor (pipeline/mp_exec.py) with 8 children, two passes
    on the warm executor: records equal to the in-process build_tile ->
@@ -69,10 +80,11 @@ on the card in phases, and exits non-zero at the first phase that fails:
    shutdown).
 
 Phase 4 also prints the region step's card time by kernel name for one
-delta and one rows chunk (torch.profiler); a delta chunk must take at most
-5 launches and copies.  B2's launches are read from its count on every
-path that runs the region step (phases 4, 5, 6, 7 and 11).  The script runs unchanged on a
-machine with several cards: phase 11's mesh and ranks take a card each.
+delta and one rows chunk (torch.profiler); each must take at most 5
+launches and copies.  B2's and B3's launches are read from their counts on
+every path that runs the region step (phases 4, 5, 6, 6b, 7 and 11).  The
+script runs unchanged on a machine with several cards: phase 11's mesh and
+ranks take a card each.
 
 The last two lines are the kernels' JSON record and the result line.  A
 kernel's bound_ms is the larger of its bytes (each input read once, each
@@ -120,38 +132,32 @@ B4_OPS_PER_STEP = 10
 # site) entry of a MEC round (the assignment's and the vote's bit tests)
 B2_OPS_PER_COLUMN = 100
 B2_OPS_PER_ENTRY = 10
-# kernel B2's launches on each path that runs the region step, each read
-# from its count, set to 0 just before the path
+# kernel B3's integer operations per (read, column) cell of a row in each
+# of its two sweeps: the nibble's shift and mask, its symbol's compare and
+# its count's add; MEC entries as B2's
+B3_OPS_PER_CELL = 4
+NOISE = {"HIFI": {},
+         "CLR": dict(sub_rate=0.04, ins_rate=0.04, del_rate=0.02),
+         # noisy reads of older CLR/ONT basecalls: every tile goes dense
+         "NOISY": dict(sub_rate=0.10, ins_rate=0.03, del_rate=0.03)}
+N_NOISY_REGIONS = 8
+# kernel B2's and B3's launches on each path that runs the region step, each
+# read from its count, set to 0 just before the path
 B2_LAUNCHES: dict = {}
-# calls of the dense region step (B3, still PyTorch tensor code) on the same
-# paths, counted the same way
-B3_CALLS: dict = {}
-_B3 = {"calls": 0}
-
-
-def count_b3() -> None:
-    """Count the calls of the dense region step from here on."""
-    from focalsv_tpu_torch.parallel import region_step as rs
-    real = rs.phase_consensus_rows_flat
-
-    def counted(*args, **kw):
-        _B3["calls"] += 1
-        return real(*args, **kw)
-    rs.phase_consensus_rows_flat = counted
+B3_LAUNCHES: dict = {}
 
 
 def reset_counts() -> None:
-    """B2's launch count and B3's call count to 0, just before a path."""
+    """B2's and B3's launch counts to 0, just before a path."""
     from focalsv_tpu_torch.ops import region_cuda
     region_cuda.reset_launches()
-    _B3["calls"] = 0
 
 
 def record_counts(path: str) -> None:
-    """B2's launches and B3's calls on the path just driven."""
+    """B2's and B3's launches on the path just driven."""
     from focalsv_tpu_torch.ops import region_cuda
     B2_LAUNCHES[path] = region_cuda.launches
-    B3_CALLS[path] = _B3["calls"]
+    B3_LAUNCHES[path] = region_cuda.rows_launches
 
 
 def log(msg: str) -> None:
@@ -223,11 +229,15 @@ def build_kernels() -> None:
         if "Compiling entry" in line:
             # the kernel's name out of its mangled symbol
             line = "kernel " + next(
-                (k for k in ("banded_align_reg_kernelILi4E",
-                             "banded_align_reg_kernelILi8E",
-                             "banded_align_reg_kernelILi16E",
-                             "banded_align_wide_kernel", "traceback_kernel",
-                             "region_step_kernel")
+                (name for k, name in (
+                    ("banded_align_reg_kernelILi4E", "B1 registers, 4 cells"),
+                    ("banded_align_reg_kernelILi8E", "B1 registers, 8 cells"),
+                    ("banded_align_reg_kernelILi16E",
+                     "B1 registers, 16 cells"),
+                    ("banded_align_wide_kernel", "B1 wide band"),
+                    ("traceback_kernel", "B4"),
+                    ("region_step_kernelINS_8DeltaSrc", "B2"),
+                    ("region_step_kernelINS_7RowsSrc", "B3"))
                  if k in line), line)
         elif not ("registers" in line or "spill" in line):
             continue
@@ -401,8 +411,7 @@ B1_CASES = [
 
 def _simulate(n, dtype="HIFI", seed0=1000):
     from focalsv_tpu_torch.testing import simulate as sim
-    noise = {"HIFI": {}, "CLR": dict(sub_rate=0.04, ins_rate=0.04,
-                                     del_rate=0.02)}[dtype]
+    noise = NOISE[dtype]
     out = []
     for i in range(n):
         L = SIZE_MIX[i % len(SIZE_MIX)]
@@ -487,11 +496,26 @@ def b2_bound(dev_buf, out, kw) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
-def b3_bound(dev_buf, out, kw) -> tuple[float, str]:
-    """The least time of the dense region step (B3, still PyTorch) for one
-    chunk, by b2_bound's count: its bytes over the memory rate against
-    B2_OPS_PER_COLUMN operations a column and B2_OPS_PER_ENTRY a (read, site)
-    entry of each MEC round the data needs, over the int32 rate."""
+def rows_cells(buf: np.ndarray, kw) -> int:
+    """The (read, column) cells of a dense chunk that its sweeps must
+    decode and count: each valid read's row columns that fall in [0, L)."""
+    from focalsv_tpu_torch.parallel.wire import BLOCK, rows_flat_layout
+    G, R, L, W = (kw[k] for k in ("G", "R", "L", "W"))
+    lay = rows_flat_layout(G, R, W)
+    q = buf[slice(*lay["qstart"])].view(np.int32).astype(np.int64)
+    rv = buf[slice(*lay["rv"])] != 0
+    lo = np.maximum(q * BLOCK, 0)
+    hi = np.minimum(q * BLOCK + W, L)
+    return int(np.maximum(hi - lo, 0)[rv].sum())
+
+
+def b3_bound(buf, dev_buf, out, kw) -> tuple[float, str]:
+    """B3's least time on the card for one dense chunk: its bytes (the chunk
+    read once, the results written once) over the memory rate, against its
+    integer operations over the int32 rate: B3_OPS_PER_CELL a cell of a row
+    in each of the two sweeps (rows_cells counts this run's cells), and
+    B2_OPS_PER_ENTRY a (read, site) entry of each MEC round the data needs
+    (the fewest that give the same bytes) and of the final assignment."""
     from focalsv_tpu_torch.parallel import region_step as rs
     n_sites = out[:, :4].contiguous().view(torch.int32).reshape(-1).long()
     rounds = kw["mec_iters"]
@@ -501,17 +525,26 @@ def b3_bound(dev_buf, out, kw) -> tuple[float, str]:
             rounds = k
             break
     entries = int(n_sites.sum()) * kw["R"] * (rounds + 1)
-    ops = (kw["G"] * kw["L"] * B2_OPS_PER_COLUMN
+    ops = (2 * rows_cells(buf, kw) * B3_OPS_PER_CELL
            + entries * B2_OPS_PER_ENTRY)
     t_bytes = (dev_buf.numel() + out.numel()) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
+def rows_kwargs(key, G, cfg) -> dict:
+    """The region step's arguments for a dense chunk, as dispatch_packed
+    gives them."""
+    from focalsv_tpu_torch.parallel import region_step as rs
+    _, R, L, W = key
+    return dict(rs.phase_consensus_kwargs(cfg.phasing), G=G, R=R, L=L, W=W)
+
+
 def region_step_parity(jobs):
     """The port's region step on the card vs on the CPU, byte for byte, at
     production chunk sizes; at every delta chunk also kernel B2 against its
-    plain version on the card, timed in turns.  Returns B2's rows."""
+    plain version on the card, at every dense chunk B3, timed in turns.
+    Returns B2's rows and B3's."""
     from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.parallel import region_step as rs
     from focalsv_tpu_torch.pipeline import device_exec as dx
@@ -522,11 +555,15 @@ def region_step_parity(jobs):
               for cfg, key, G, _n, buf in chunks]
     record_counts("region_step_chunks")
     n_delta = sum(key[0] == "delta" for _c, key, *_ in chunks)
-    log(f"[region_step] B2 launches on {len(chunks)} chunks through "
-        f"dispatch_packed: {region_cuda.launches} ({n_delta} delta chunks)")
+    log(f"[region_step] launches on {len(chunks)} chunks through "
+        f"dispatch_packed: B2 {region_cuda.launches} ({n_delta} delta "
+        f"chunks), B3 {region_cuda.rows_launches} ({len(chunks) - n_delta} "
+        f"dense chunks)")
     if region_cuda.launches != n_delta:
         raise AssertionError("B2 did not launch once per delta chunk")
-    rows = []
+    if region_cuda.rows_launches != len(chunks) - n_delta:
+        raise AssertionError("B3 did not launch once per dense chunk")
+    rows, b3_rows = [], []
     profiled = set()
     for (cfg, key, G, n_real, buf), got in zip(chunks, firsts):
         if key[0] == "delta":
@@ -550,21 +587,15 @@ def region_step_parity(jobs):
             raise AssertionError(f"region step on the card differs from "
                                  f"the CPU for bucket {key}")
         if key[0] == "delta":
-            rows.append(b2_against_plain(str(key), buf, delta_kwargs(
+            rows.append(against_plain(str(key), buf, delta_kwargs(
                 key, G, cfg), want))
         else:
-            _, R, L, W = key
-            kw = dict(rs.phase_consensus_kwargs(cfg.phasing), G=G, R=R,
-                      L=L, W=W)
-            dev = torch.from_numpy(buf).to(DEVICE)
-            bound, by = b3_bound(dev, rs.phase_consensus_rows_flat(dev, **kw),
-                                 kw)
-            log(f"[b3] {key} G={G}: the dense step (PyTorch) {ms:.2f} ms a "
-                f"chunk by dispatch, bound_ms={bound:.4f} bound_by={by}")
+            b3_rows.append(against_plain(f"clr {key}", buf, rows_kwargs(
+                key, G, cfg), want))
         if key[0] not in profiled:           # one delta and one rows chunk
             profiled.add(key[0])
             profile_chunk(buf, key, G, cfg)
-    return rows
+    return rows, b3_rows
 
 
 def dispatch_split(buf, key, G, cfg) -> dict:
@@ -598,63 +629,79 @@ def dispatch_split(buf, key, G, cfg) -> dict:
                 copy_out_ms=ev[2].elapsed_time(ev[3]), wall_ms=wall)
 
 
-def b2_against_plain(case, buf, kw, cpu_out=None) -> dict:
-    """B2 on the card against its plain version on the card and on the CPU,
-    byte for byte; ms a chunk of both on the card (CUDA events, in turns:
-    kernel, plain, plain, kernel)."""
+def against_plain(case, buf, kw, cpu_out=None) -> dict:
+    """B2 (a delta chunk) or B3 (a dense chunk: kw has W) on the card
+    against its plain version on the card and on the CPU, byte for byte;
+    ms a chunk of both on the card (CUDA events, in turns: kernel, plain,
+    plain, kernel), its bound and its launch plan."""
     from focalsv_tpu_torch.parallel import region_step as rs
     kw = {**rs.STEP_DEFAULTS, **kw}
+    dense = "W" in kw
+    name = "B3" if dense else "B2"
+    entry, plain_entry = (
+        (rs.phase_consensus_rows_flat, rs.phase_consensus_rows_flat_plain)
+        if dense else
+        (rs.phase_consensus_delta_flat, rs.phase_consensus_delta_flat_plain))
     dev = torch.from_numpy(buf).to(DEVICE)
 
     def kernel():
-        return rs.phase_consensus_delta_flat(dev, **kw)
+        return entry(dev, **kw)
 
     def plain():
-        return rs.phase_consensus_delta_flat_plain(dev, **kw)
+        return plain_entry(dev, **kw)
 
     out = kernel()
     on_card = plain()
     sync()
     if cpu_out is None:
-        cpu_out = rs.phase_consensus_delta_flat(torch.from_numpy(buf),
-                                                **kw).numpy()
+        cpu_out = entry(torch.from_numpy(buf), **kw).numpy()
     host = out.cpu().numpy()
     err = int(np.abs(host.astype(np.int16) - cpu_out.astype(np.int16)).max())
     err = max(err, int((out.int() - on_card.int()).abs().max()))
     k1, p1 = time_ms(kernel, 20), time_ms(plain, 2)
     p2, k2 = time_ms(plain, 2), time_ms(kernel, 20)
-    bound, by = b2_bound(dev, out, kw)
-    plan = b2_plan(kw)
+    bound, by = (b3_bound(buf, dev, out, kw) if dense
+                 else b2_bound(dev, out, kw))
+    plan = launch_plan(kw)
     row = dict(case=case, L=kw["L"], max_abs_err=err, ms=(k1 + k2) / 2,
                plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by, **plan)
-    log(f"[b2] {case}: G={kw['G']} R={kw['R']} L={kw['L']} "
-        f"Drle={kw['Drle']} S={kw['max_sites']} max_abs_err={err} (card "
-        f"plain and CPU) kernel_ms={k1:.4f},{k2:.4f} "
-        f"plain_ms={p1:.2f},{p2:.2f} bound_ms={bound:.4f} bound_by={by} "
+    shape = (f"W={kw['W']} cells={rows_cells(buf, kw)}" if dense
+             else f"Drle={kw['Drle']}")
+    log(f"[{name.lower()}] {case}: G={kw['G']} R={kw['R']} L={kw['L']} "
+        f"{shape} S={kw['max_sites']} max_abs_err={err} (card plain and "
+        f"CPU) kernel_ms={k1:.4f},{k2:.4f} plain_ms={p1:.2f},{p2:.2f} "
+        f"bound_ms={bound:.4f} bound_by={by} "
         f"share_of_bound={bound / ((k1 + k2) / 2):.3f} "
         + " ".join(f"{k}={v}" for k, v in plan.items()))
     if err != 0:
-        raise AssertionError(f"B2 differs from its plain version ({case})")
+        raise AssertionError(f"{name} differs from its plain version "
+                             f"({case})")
     return row
 
 
-def b2_plan(kw) -> dict:
-    """How B2 launches this chunk: CTAs a region, shared memory a CTA, and
-    whether the planes and the events live in shared memory."""
+def launch_plan(kw) -> dict:
+    """How B2 or B3 launches this chunk: CTAs a region, shared memory a
+    CTA, and whether the planes and (B2) the events live in shared
+    memory."""
     if DEVICE.type != "cuda":            # a CPU rehearsal of the script
         return {}
     from focalsv_tpu_torch.ops import region_cuda
+    if "W" in kw:
+        return region_cuda.rows_launch_plan(
+            **{k: kw[k] for k in ("G", "R", "L", "W")}, S=kw["max_sites"])
     return region_cuda.launch_plan(
         **{k: kw[k] for k in ("G", "R", "L", "Ds", "Dd", "Drle")},
         S=kw["max_sites"])
 
 
-def region_case_parity() -> list[dict]:
-    """B2 against its plain version on every case of
-    testing/region_cases.py."""
+def region_case_parity() -> tuple[list[dict], list[dict]]:
+    """B2 against its plain version on every delta case of
+    testing/region_cases.py, B3 on every dense case."""
     from focalsv_tpu_torch.testing import region_cases
-    return [b2_against_plain(name, *region_cases.build(name))
-            for name in sorted(region_cases.CASES)]
+    return ([against_plain(name, *region_cases.build(name))
+             for name in sorted(region_cases.CASES)],
+            [against_plain(name, *region_cases.build_rows(name))
+             for name in sorted(region_cases.ROWS_CASES)])
 
 
 def profile_chunk(buf, key, G, cfg, top: int = 10) -> None:
@@ -680,9 +727,10 @@ def profile_chunk(buf, key, G, cfg, top: int = 10) -> None:
     launches = sum(r[1] for r in rows)
     log(f"[profile] {key} G={G}: {launches} kernel launches and copies, "
         f"{total_us / 1e3:.2f} ms of card time; top {top} by name:")
-    if key[0] == "delta" and launches > 5:
-        raise AssertionError(f"a delta chunk took {launches} launches and "
-                             f"copies; kernel B2 makes it one launch")
+    if launches > 5:
+        raise AssertionError(f"a {key[0]} chunk took {launches} launches "
+                             f"and copies; kernels B2 and B3 make the step "
+                             f"one launch")
     for us, count, name in rows[:top]:
         for noise in ("void ", "at::native::", "(anonymous namespace)::",
                       "at::TensorIteratorBase&", "std::"):
@@ -736,7 +784,7 @@ def write_chromosome(regions, work: str):
     fa_path = os.path.join(work, "ref.fa")
     write_fasta(fa_path, [("chr21", chrom_ref)])
     beds = {}
-    for n in (len(regions), N_OLC_REGIONS):
+    for n in (len(regions), min(N_OLC_REGIONS, len(regions))):
         beds[n] = os.path.join(work, f"regions_{n}.bed")
         with open(beds[n], "w") as f:
             for i in range(n):
@@ -744,10 +792,10 @@ def write_chromosome(regions, work: str):
     return bam_path, fa_path, beds
 
 
-def run_mode(bam, fa, bed, out, method, mode, n, mesh=None):
+def run_mode(bam, fa, bed, out, method, mode, n, mesh=None, dtype="HIFI"):
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.pipeline import main
-    cfg = preset("HIFI")
+    cfg = preset(dtype)
     cfg = cfg.replace(
         assembly=dataclasses.replace(cfg.assembly, method=method),
         execution=dataclasses.replace(cfg.execution, mode=mode))
@@ -769,9 +817,11 @@ def run_mode(bam, fa, bed, out, method, mode, n, mesh=None):
     if mode == "device":
         stages.update({k: round(stats[k], 3) for k in (
             "tile_build_s", "device_wait_s", "finish_s", "device_busy_s")})
-    log(f"[slice] {method} {mode} stage seconds: {json.dumps(stages)}")
+    log(f"[slice] {dtype} {method} {mode} stage seconds: "
+        f"{json.dumps(stages)}")
     n_rec = sum(1 for line in vcf.splitlines() if not line.startswith("#"))
-    log(f"[slice] {method} {mode}{f' on {mesh!r}' if mesh else ''}: "
+    log(f"[slice] {dtype} {method} {mode}"
+        f"{f' on {mesh!r}' if mesh else ''}: "
         f"{n} regions in {secs:.2f} s = "
         f"{n / secs:.3f} regions/s, {n_rec} records"
         + (f", n_chunks={stats['n_chunks']} "
@@ -862,6 +912,96 @@ def slice_run(regions, work: str):
         raise AssertionError(f"slice checks failed: {failed}")
     return dict(inputs, b1=launches, b4=tb_launches,
                 olc_out=f"{work}/olc_device")
+
+
+# -- phase 6b ---------------------------------------------------------------
+
+def noisy_cpu_run(bam, fa, bed, out) -> None:
+    """Phase 6b's device-mode run on the CPU (the plain version), in the
+    subprocess that the smoke run starts."""
+    run_mode(bam, fa, bed, out, "guided", "device", N_NOISY_REGIONS,
+             dtype="ONT")
+
+
+def noisy_slice(work: str) -> list[dict]:
+    """Phase 6b: the noisy regions through run_target_mode (ONT preset) on
+    the card, on the CPU and in host mode; then B3 against its plain
+    version at every noisy chunk.  Returns B3's rows of those chunks."""
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    t0 = time.perf_counter()
+    regions = _simulate(N_NOISY_REGIONS, "NOISY", seed0=3000)
+    cfg = preset("ONT")
+    tiles = [dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, cfg)
+             for rg in regions]
+    keys = [dx._bucket_key(t, cfg) for t in tiles]
+    log(f"[noisy] {len(regions)} regions simulated and tiled in "
+        f"{time.perf_counter() - t0:.1f} s; buckets {keys}")
+    if any(k is None or k[0] != "dense" for k in keys):
+        raise AssertionError("a noisy tile did not take the dense encoding")
+    d = f"{work}/noisy"
+    os.makedirs(d)
+    bam, fa, beds = write_chromosome(regions, d)
+    bed = beds[len(regions)]
+    # the plain version's run on the CPU, beside the card's runs
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--noisy-cpu", bam, fa,
+         bed, f"{d}/cpu"],
+        env=dict(os.environ, FOCALSV_TORCH_DEVICE="cpu",
+                 CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        reset_counts()
+        dev, dev_stats, dev_rec = run_mode(bam, fa, bed, f"{d}/device",
+                                           "guided", "device", len(regions),
+                                           dtype="ONT")
+        record_counts("noisy_target_mode")
+        host, host_stats, host_rec = run_mode(bam, fa, bed, f"{d}/host",
+                                              "guided", "host",
+                                              len(regions), dtype="ONT")
+    finally:
+        cpu_log = proc.communicate(timeout=900)[0]
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 6b's CPU run failed:\n"
+                             f"{cpu_log[-3000:]}")
+    with open(f"{d}/cpu/FocalSV_Final_SV.vcf") as f:
+        cpu = f.read()
+    with open(f"{d}/cpu/chr21/log/device_stats.json") as f:
+        cpu_stats = json.load(f)
+    n = len(regions)
+    b3 = B3_LAUNCHES["noisy_target_mode"]
+    log(f"[noisy] device (card) {n / dev_stats['wall_s']:.3f} regions/s, "
+        f"tile_build_s={dev_stats['tile_build_s']:.3f} "
+        f"finish_s={dev_stats['finish_s']:.3f} "
+        f"device_busy_s={dev_stats['device_busy_s']:.3f}; host "
+        f"{n / host_stats['wall_s']:.3f} regions/s; device on the CPU "
+        f"(plain version): device_busy_s={cpu_stats['device_busy_s']:.3f}; "
+        f"launches B3 {b3}, B2 {B2_LAUNCHES['noisy_target_mode']}")
+    host_same = dev == host
+    log(f"[noisy] host VCF == device VCF: {host_same} ({host_rec} host "
+        f"records, {dev_rec} device records)")
+    if not host_same:
+        got = [ln for ln in dev.splitlines() if not ln.startswith("#")]
+        want = [ln for ln in host.splitlines() if not ln.startswith("#")]
+        for ln in sorted(set(got) ^ set(want)):
+            log(f"[noisy]   {'device' if ln in got else 'host'} only: "
+                f"{ln[:300]}")
+    checks = {
+        "card device VCF == CPU device VCF": dev == cpu,
+        "records > 0": dev_rec > 0,
+        "n_host_fallback == 0": dev_stats["n_host_fallback"] == 0,
+        "B3 launches == dense chunks": b3 == dev_stats["n_chunks"] > 0,
+        "B2 launches == 0": B2_LAUNCHES["noisy_target_mode"] == 0,
+    }
+    for name, ok in checks.items():
+        log(f"[noisy] check {name}: {ok}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"noisy slice checks failed: {failed}")
+    # B3 at each noisy chunk, as the run packed them (launches not counted)
+    return [against_plain(f"noisy {key}", buf, rows_kwargs(key, G, cfg))
+            for cfg, key, G, _n, buf in region_chunks([(cfg, tiles)], 1)]
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -1165,12 +1305,15 @@ def sharded_region_steps(jobs, mesh) -> None:
               for cfg, key, G, _n, buf in chunks]
     record_counts("sharded_region_step")
     n_delta = sum(key[0] == "delta" for _c, key, *_ in chunks)
-    log(f"[mesh] B2 launches on one sharded pass over {len(chunks)} chunks: "
-        f"{region_cuda.launches} ({n_delta} delta chunks x {mesh.size} "
-        f"shards)")
-    if region_cuda.launches != n_delta * mesh.size:
-        raise AssertionError("the sharded step did not launch B2 once per "
-                             "shard of each delta chunk")
+    n_dense = len(chunks) - n_delta
+    log(f"[mesh] launches on one sharded pass over {len(chunks)} chunks: "
+        f"B2 {region_cuda.launches} ({n_delta} delta chunks x {mesh.size} "
+        f"shards), B3 {region_cuda.rows_launches} ({n_dense} dense chunks "
+        f"x {mesh.size} shards)")
+    if (region_cuda.launches != n_delta * mesh.size
+            or region_cuda.rows_launches != n_dense * mesh.size):
+        raise AssertionError("the sharded step did not launch B2 and B3 "
+                             "once per shard of each chunk")
     for (cfg, key, G, n_real, buf), got in zip(chunks, firsts):
         def one():
             return dx.dispatch_packed(buf, key, G, cfg, DEVICE)
@@ -1493,7 +1636,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     host_libraries()
     build_kernels()
-    count_b3()
     rng = np.random.default_rng(0)
     b1, b4 = kernel_parity(rng, B1_CASES)
     b4.append(dict(case="crafted_walks", max_abs_err=walk_parity()))
@@ -1502,14 +1644,15 @@ def main() -> int:
     log(f"[data] simulated {len(regions)} HiFi regions at {COVERAGE}x in "
         f"{time.perf_counter() - t0:.1f} s")
     jobs = region_tiles(regions[: 2 * len(SIZE_MIX)], n_clr=2)
-    b2 = region_step_parity(jobs)
-    b2_cases = region_case_parity()
+    b2, b3 = region_step_parity(jobs)
+    b2_cases, b3_cases = region_case_parity()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT,
                                                                    "build"))
     try:
         golden(work)
         main_path = slice_run(regions, work)
+        b3_noisy = noisy_slice(work)
         mp_executor(regions, work, main_path["guided_rps"])
         complex_b1, complex_b4 = complex_svs(work, main_path["olc_out"],
                                              main_path["fasta"])
@@ -1565,7 +1708,29 @@ def main() -> int:
         "cluster": hifi.get("cluster"), "smem_bytes": hifi.get("smem_bytes"),
         "ms_by_chunk": {f"L{r['L']}": r["ms"] for r in b2},
         "bound_ms_by_chunk": {f"L{r['L']}": r["bound_ms"] for r in b2}})
-    log(f"[b3] calls of the dense region step by path: {B3_CALLS}")
+    for path in ("region_step_chunks", "noisy_target_mode",
+                 "sharded_region_step"):
+        if B3_LAUNCHES.get(path, 0) == 0:
+            raise AssertionError(f"B3 was not launched on the path {path}")
+    noisy = min(b3_noisy, key=lambda r: r["L"])   # the chunk at L 16384
+    kernels.append({
+        "name": "region_rows (B3)", "route": "cuda",
+        "source": "focalsv_tpu_torch/csrc/region_step.cu",
+        "replaces": "focalsv_tpu/parallel/region_step.py:866",
+        "launches": sum(B3_LAUNCHES.values()),
+        "launches_by_path": dict(B3_LAUNCHES),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in b3 + b3_cases + b3_noisy),
+        "ms": noisy["ms"], "plain_ms": noisy["plain_ms"],
+        "bound_ms": noisy["bound_ms"], "bound_by": noisy["bound_by"],
+        # no single PyTorch call computes the region step
+        "library_ms": None,
+        "cluster": noisy.get("cluster"), "smem_bytes": noisy.get("smem_bytes"),
+        "ms_by_chunk": {r["case"]: r["ms"] for r in b3 + b3_noisy},
+        "plain_ms_by_chunk": {r["case"]: r["plain_ms"]
+                              for r in b3 + b3_noisy},
+        "bound_ms_by_chunk": {r["case"]: r["bound_ms"]
+                              for r in b3 + b3_noisy}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1578,6 +1743,11 @@ if __name__ == "__main__":
         # phase 8's run on the CPU, started by the smoke run itself
         sys.path.insert(0, ROOT)
         complex_run(sys.argv[2], "cpu", sys.argv[3], sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) == 6 and sys.argv[1] == "--noisy-cpu":
+        # phase 6b's run on the CPU, started by the smoke run itself
+        sys.path.insert(0, ROOT)
+        noisy_cpu_run(*sys.argv[2:])
         sys.exit(0)
     try:
         code = main()

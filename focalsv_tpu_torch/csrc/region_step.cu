@@ -1,6 +1,14 @@
-// Kernel B2: the region step of a delta chunk, one launch a chunk.
+// Kernels B2 and B3: the region step of a delta chunk (B2) and of a dense
+// chunk (B3), one launch a chunk each.  Both are one template,
+// region_step_kernel<Src>, whose source type says how a tile's column
+// counts and the sites' allele bits are found: DeltaSrc from the events of
+// a delta chunk, RowsSrc from the packed rows of a dense one.  Everything
+// from the leader's strip merge on (site compaction, the allele bitplanes'
+// purification, blocks, MEC, the reads' and sites' results), the het test
+// and strip key, the dense track writer and the cluster exchange are the
+// same functions in both.  B3 is described after B2, at RowsSrc.
 //
-// Replaces focalsv_tpu/parallel/region_step.py::phase_consensus_delta_flat
+// B2 replaces focalsv_tpu/parallel/region_step.py::phase_consensus_delta_flat
 // (XLA code: _one_region_delta, _select_sites_strips_dynamic, _phase_core,
 // the two haplotype votes, _flat_parts_rle and _flat_parts).  It computes
 // the bytes of the plain version,
@@ -128,9 +136,12 @@ constexpr unsigned kMaxCol = (1u << 26) - 1;   // columns fit 26 key bits
 constexpr unsigned kNoRead = 0xffffu;          // an event's read past R
 constexpr int kMaxReads = 32767;               // a 16-bit half per count
 
+constexpr int kBlock = 128;               // a dense row starts on a block
 // sections of wire.delta_flat_layout, in order
 enum { IN_REF, IN_STARTS, IN_ENDS, IN_RV, IN_SUB_POS, IN_SUB_READ, IN_SUB_SYM,
        IN_DEL_READ, IN_DEL_A, IN_DEL_B, IN_LTRUE, IN_COUNT };
+// sections of wire.rows_flat_layout, in order
+enum { IN_ROWS, IN_QSTART, IN_ROWS_RV, IN_ROWS_LTRUE, IN_ROWS_COUNT };
 // misc scalars in shared memory; the leader's also gather the cluster's
 // (M_CARRY_C through M_VSUB + 4 are cleared together)
 enum { M_A0_COL0, M_CD, M_LAST = M_CD + 2, M_CARRY_C = M_LAST + 2, M_CARRY_D,
@@ -145,7 +156,8 @@ struct Params {
   uint32_t* planes_g;         // the planes when they are not in shared memory
   uint32_t* events_g;         // the events when they are not in shared memory
   int32_t* stage_g;           // runs of a CTA past the leader, per track
-  int G, R, L, Ds, Dd, Drle, S, RW, nc, E, tiles_per_cta;
+  bool rows;                  // a dense chunk (B3): W is its row width
+  int G, R, L, W, Ds, Dd, Drle, S, RW, nc, E, tiles_per_cta;
   int mec_iters, min_site_depth, min_minor_count, lo_num, lo_den, hi_num,
       hi_den, purify_window, purify_min_pairs, purify_num, purify_den;
   long long in_off[IN_COUNT];
@@ -169,10 +181,14 @@ struct Ctx {
   const int* del_read;
   const int* del_a;
   const int* del_b;
+  const uint8_t* rows;        // (R, W / 2) split-half nibbles (B3)
+  const int* qstart;          // (R,) first block of each row (B3)
   int ltrue;
   uint8_t* out;
   int rank, nc;               // this CTA in its region's cluster
-  int c_lo, c_hi, n_tiles;    // its columns [c_lo, c_hi) in n_tiles tiles
+  // B2: its columns [c_lo, c_hi) in n_tiles tiles; B3: the same range of
+  // each half of the columns, [c_lo, c_hi) and [c_lo + L/2, c_hi + L/2)
+  int c_lo, c_hi, n_tiles;
   unsigned long long* keys;   // (S,) best key of each strip in this CTA
   int* dif;                   // (kRows, kTile) difference arrays of a tile
   uint32_t* events;           // this CTA's events, bucketed by tile
@@ -495,6 +511,37 @@ __device__ void clear_dif(const Ctx& c) {
     d[i] = make_int4(0, 0, 0, 0);
 }
 
+// The het test of a column from its allele counts {A, C, G, T, DEL}; a het
+// column updates its strip's best in this CTA's keys.  Column 0's alleles go
+// to misc (the empty site slots take them).  `strip`: columns a strip.
+__device__ __forceinline__ void site_key(const Params& p, const Ctx& c,
+                                         int col, const int (&cnt)[5],
+                                         int strip) {
+  // a0: the first maximum; a1: the first maximum with a0 masked to -1
+  int a0 = 0, n0 = cnt[0];
+  for (int s = 1; s < 5; ++s)
+    if (cnt[s] > n0) { n0 = cnt[s]; a0 = s; }
+  int a1 = 0, top1 = a0 == 0 ? -1 : cnt[0];
+  for (int s = 1; s < 5; ++s) {
+    const int v = s == a0 ? -1 : cnt[s];
+    if (v > top1) { top1 = v; a1 = s; }
+  }
+  if (col == 0) c.misc[M_A0_COL0] = a0 | (a1 << 4);
+  const int depth = cnt[0] + cnt[1] + cnt[2] + cnt[3] + cnt[4];
+  const bool het = depth >= imax(p.min_site_depth, 1) &&
+                   top1 * p.lo_den >= depth * p.lo_num &&
+                   top1 * p.hi_den <= depth * p.hi_num &&
+                   top1 >= p.min_minor_count;
+  if (!het) return;
+  const float bal = __fdiv_rn((float)top1, (float)imax(n0 + top1, 1));
+  if (!(bal > 0.f)) return;                // never selected
+  const int stripe = imin(col / strip, p.S - 1);
+  const unsigned lo = ((kMaxCol - (unsigned)col) << 6) |
+                      ((unsigned)a0 << 3) | (unsigned)a1;
+  atomicMax(&c.keys[stripe],
+            ((unsigned long long)__float_as_uint(bal) << 32) | lo);
+}
+
 // Sweep 1 over this CTA's tiles: column counts, het columns, the best
 // column of each strip among them in this CTA's keys.
 __device__ void sweep_sites(const Params& p, const Ctx& c) {
@@ -524,29 +571,7 @@ __device__ void sweep_sites(const Params& p, const Ctx& c) {
       const int rf = c.ref[col];
       for (int s = 0; s < 4; ++s) cnt[s] = (rf == s ? base : 0) + sub[s];
       cnt[4] = del[j];
-      // a0: the first maximum; a1: the first maximum with a0 masked to -1
-      int a0 = 0, n0 = cnt[0];
-      for (int s = 1; s < 5; ++s)
-        if (cnt[s] > n0) { n0 = cnt[s]; a0 = s; }
-      int a1 = 0, top1 = a0 == 0 ? -1 : cnt[0];
-      for (int s = 1; s < 5; ++s) {
-        const int v = s == a0 ? -1 : cnt[s];
-        if (v > top1) { top1 = v; a1 = s; }
-      }
-      if (col == 0) c.misc[M_A0_COL0] = a0 | (a1 << 4);
-      const int depth = cnt[0] + cnt[1] + cnt[2] + cnt[3] + cnt[4];
-      const bool het = depth >= imax(p.min_site_depth, 1) &&
-                       top1 * p.lo_den >= depth * p.lo_num &&
-                       top1 * p.hi_den <= depth * p.hi_num &&
-                       top1 >= p.min_minor_count;
-      if (!het) continue;
-      const float bal = __fdiv_rn((float)top1, (float)imax(n0 + top1, 1));
-      if (!(bal > 0.f)) continue;              // never selected
-      const int stripe = imin(col / strip, S - 1);
-      const unsigned lo = ((kMaxCol - (unsigned)col) << 6) |
-                          ((unsigned)a0 << 3) | (unsigned)a1;
-      atomicMax(&c.keys[stripe],
-                ((unsigned long long)__float_as_uint(bal) << 32) | lo);
+      site_key(p, c, col, cnt, strip);
     }
     __syncthreads();       // every column read and cleared: the next events
   }
@@ -966,6 +991,39 @@ __device__ __forceinline__ void record_run(const Params& p, const Ctx& c,
   }
 }
 
+// The dense tracks of this thread's kCols columns from col0 (a multiple of
+// 8) below hi, from their states and voted symbols (cs, as sweep_votes packs
+// them): split-half nibbles (column i low, i + L/2 high) and the coverage
+// bits, most significant first (np.packbits).  A byte of nibbles takes the
+// low one first; the high one is or-ed in after a barrier, here or in a
+// later tile of the same CTA.  Every thread calls it.
+__device__ __forceinline__ void write_dense(const Params& p, const Ctx& c,
+                                            int col0, int hi,
+                                            const int (&cs)[kCols]) {
+  const int L = p.L, half = L / 2;
+  uint8_t* tail = c.out + 4 + 8LL * p.S + 3LL * p.R;
+  for (int k = 0; k < 2; ++k) {
+    uint8_t* o_sym = tail + (long long)half * k;
+    unsigned v = 0;
+    for (int j = 0; j < kCols; ++j) {
+      const int col = col0 + j;
+      if (col < half && col < hi)
+        o_sym[col] = (uint8_t)((cs[j] >> (8 + 4 * k)) & 15);
+      if (((cs[j] >> (kStateBits * k)) & 7) != 7) v |= 0x80u >> j;
+    }
+    if (col0 < hi) tail[L + (long long)(L / 8) * k + (col0 >> 3)] = (uint8_t)v;
+  }
+  __syncthreads();          // the low nibbles are in
+  for (int k = 0; k < 2; ++k) {
+    uint8_t* o_sym = tail + (long long)half * k;
+    for (int j = 0; j < kCols; ++j) {
+      const int col = col0 + j;
+      if (col >= half && col < hi)
+        o_sym[col - half] |= (uint8_t)(((cs[j] >> (8 + 4 * k)) & 15) << 4);
+    }
+  }
+}
+
 // Sweep 2 over this CTA's tiles: both haplotypes' 6-symbol votes at every
 // column and their tracks, as RLE runs against the reference (Drle > 0) or
 // as nibbles and coverage bits (Drle == 0, one CTA a region).  Returns, in
@@ -973,13 +1031,11 @@ __device__ __forceinline__ void record_run(const Params& p, const Ctx& c,
 __device__ void sweep_votes(const Params& p, const Ctx& c, int (&nb)[2],
                             int (&nd)[2]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int i0 = threadIdx.x * kCols, L = p.L, D = p.Drle, half = L / 2;
+  const int i0 = threadIdx.x * kCols, L = p.L, D = p.Drle;
   uint8_t* tail = c.out + 4 + 8LL * p.S + 3LL * p.R;
   uint8_t* o_start[2] = {tail + 8, tail + 8 + 4LL * D};
   uint8_t* o_len[2] = {tail + 8 + 8LL * D, tail + 8 + 12LL * D};
   uint8_t* o_val[2] = {tail + 8 + 16LL * D, tail + 8 + 17LL * D};
-  uint8_t* o_sym[2] = {tail, tail + half};
-  uint8_t* o_covb[2] = {tail + L, tail + L + L / 8};
   int carry_c = c.misc[M_CARRY_C], carry_d = c.misc[M_CARRY_D], par = 0;
   int prev = c.misc[M_PREV];        // both states of the column before
   nb[0] = nb[1] = nd[0] = nd[1] = 0;
@@ -1007,27 +1063,7 @@ __device__ void sweep_votes(const Params& p, const Ctx& c, int (&nb)[2],
     }
     if (lane == 31) c.wlast[warp] = cs[kCols - 1] & 0xff;
     if (D == 0) {
-      // dense: split-half nibbles (column i low, i + L/2 high) and the
-      // coverage bits, most significant first (np.packbits)
-      const int col0 = t0 + i0;
-      for (int k = 0; k < 2; ++k) {
-        unsigned v = 0;
-        for (int j = 0; j < kCols; ++j) {
-          const int col = col0 + j;
-          const int sym = (cs[j] >> (8 + 4 * k)) & 15;
-          if (col < half) o_sym[k][col] = (uint8_t)sym;
-          if (((cs[j] >> (kStateBits * k)) & 7) != 7) v |= 0x80u >> j;
-        }
-        if (col0 < c.c_hi) o_covb[k][col0 >> 3] = (uint8_t)v;
-      }
-      __syncthreads();      // the low nibbles are in
-      for (int k = 0; k < 2; ++k)
-        for (int j = 0; j < kCols; ++j) {
-          const int col = col0 + j;
-          if (col >= half && col < c.c_hi)
-            o_sym[k][col - half] |= (uint8_t)(((cs[j] >> (8 + 4 * k)) & 15)
-                                              << 4);
-        }
+      write_dense(p, c, t0 + i0, c.c_hi, cs);
       continue;
     }
     __syncthreads();        // every warp's last column is in
@@ -1153,9 +1189,11 @@ __device__ void finish_runs(const Params& p, const Ctx& c,
 #ifdef FOCALSV_B2_PHASES
 // A build for testing/kernel_sweep.py --phases: each CTA's thread 0 stamps
 // the card's clock (ns) at the phase boundaries into 8 words a CTA after the
-// staged runs of the scratch.  The stamp's barrier is this build's alone.
+// staged runs of the scratch (B2 only).  The stamp's barrier is this build's
+// alone.
 #define PHASE(i) phase_stamp(p, blockIdx.x, i)
 __device__ void phase_stamp(const Params& p, int cta, int i) {
+  if (p.rows) return;
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned long long t;
@@ -1169,50 +1207,310 @@ __device__ void phase_stamp(const Params& p, int cta, int i) {
 #define PHASE(i)
 #endif
 
+// -- what both kernels share around their sources ---------------------------
+
+// The leader's sites: the best key of each strip over the cluster (each CTA
+// kept its own keys), compacted.  Returns their count.
+__device__ int leader_sites(const Params& p, const Ctx& c,
+                            cg::cluster_group& cluster) {
+  for (int r = 1; r < p.nc; ++r) {
+    const unsigned long long* keys = cluster.map_shared_rank(c.keys, r);
+    for (int s = threadIdx.x; s < p.S; s += blockDim.x)
+      if (keys[s] > c.keys[s]) c.keys[s] = keys[s];
+  }
+  __syncthreads();
+  return compact_sites(p, c);
+}
+
+// From the allele bitplanes of the n_het selected sites to the results of
+// the reads and the sites: purification, blocks, the MEC rounds.
+__device__ void phase_reads(const Params& p, const Ctx& c, int n_het) {
+  const int nS = purify(p, c, n_het);
+  const int nB = blocks_and_init(p, c, nS);
+  for (int it = 0; it < p.mec_iters; ++it) {
+    assign(p, c, nB);
+    if (!update_h(p, c, nS)) break;  // a fixed point: the rest repeat it
+  }
+  assign(p, c, nB);
+  reads_out(p, c, nS);
+  sites_out(p, c, nS);
+}
+
+// Each read's class in the vote from the leader's hp: hp 0 votes in both
+// tracks.  Call after the cluster barrier that follows the leader's work.
+__device__ void read_classes(const Params& p, const Ctx& c,
+                             cg::cluster_group& cluster) {
+  const int8_t* hp = cluster.map_shared_rank(c.hp, 0);
+  for (int r = threadIdx.x; r < p.R; r += blockDim.x)
+    c.cls[r] = c.rv[r] ? (hp[r] ? (uint8_t)hp[r] : (uint8_t)3) : (uint8_t)0;
+}
+
+// -- B2's source: the events of a delta chunk -------------------------------
+
+struct DeltaSrc {
+  // region g's sections, this CTA's tiles (a contiguous share of the
+  // region's), its events and staged runs
+  static __device__ void inputs(const Params& p, Ctx& c, int g,
+                                unsigned char* sm) {
+    const uint8_t* buf = p.buf;
+    c.ref = buf + p.in_off[IN_REF] + (long long)g * p.L;
+    c.starts = reinterpret_cast<const int*>(buf + p.in_off[IN_STARTS]) +
+               (long long)g * p.R;
+    c.ends = reinterpret_cast<const int*>(buf + p.in_off[IN_ENDS]) +
+             (long long)g * p.R;
+    c.rv = buf + p.in_off[IN_RV] + (long long)g * p.R;
+    c.sub_pos = reinterpret_cast<const int*>(buf + p.in_off[IN_SUB_POS]) +
+                (long long)g * p.Ds;
+    c.sub_read = reinterpret_cast<const int*>(buf + p.in_off[IN_SUB_READ]) +
+                 (long long)g * p.Ds;
+    c.sub_sym = buf + p.in_off[IN_SUB_SYM] + (long long)g * p.Ds;
+    c.del_read = reinterpret_cast<const int*>(buf + p.in_off[IN_DEL_READ]) +
+                 (long long)g * p.Dd;
+    c.del_a = reinterpret_cast<const int*>(buf + p.in_off[IN_DEL_A]) +
+              (long long)g * p.Dd;
+    c.del_b = reinterpret_cast<const int*>(buf + p.in_off[IN_DEL_B]) +
+              (long long)g * p.Dd;
+    c.ltrue = reinterpret_cast<const int*>(buf + p.in_off[IN_LTRUE])[g];
+    const int n_all = (p.L + kTile - 1) / kTile;
+    const int tlo = c.rank * n_all / p.nc, thi = (c.rank + 1) * n_all / p.nc;
+    c.c_lo = tlo * kTile;
+    c.c_hi = imin(thi * kTile, p.L);
+    c.n_tiles = thi - tlo;
+    const long long cta = (long long)g * kMaxCluster + c.rank;
+    c.events = p.s_events >= 0
+                   ? reinterpret_cast<uint32_t*>(sm + p.s_events)
+                   : p.events_g + cta * p.E;
+    c.stage = p.stage_g + cta * 6 * (p.Drle + 1);
+  }
+
+  static __device__ void sites(const Params& p, const Ctx& c) {
+    clear_dif(c);
+    bin_events(p, c);
+    PHASE(1);
+    sweep_sites(p, c);
+  }
+
+  static __device__ void alleles(const Params& p, const Ctx& c, int n_het) {
+    build_alleles(p, c, n_het);
+  }
+
+  static __device__ void votes(const Params& p, const Ctx& c,
+                               cg::cluster_group& cluster) {
+    clear_dif(c);                    // the planes used the leader's
+    vote_carries(p, c);
+    PHASE(4);
+    int nb[2], nd[2];
+    sweep_votes(p, c, nb, nd);
+    PHASE(5);
+    if (p.Drle > 0) finish_runs(p, c, cluster, nb, nd);
+  }
+};
+
+// -- Kernel B3's source: the rows of a dense chunk --------------------------
+//
+// B3 replaces focalsv_tpu/parallel/region_step.py::phase_consensus_rows_flat
+// (XLA code: phase_consensus_rows_packed's row expansion, _unpack_nibbles,
+// _one_region, _select_sites_strips_dynamic, _phase_core, the two votes and
+// _flat_parts).  It computes the bytes of the plain version,
+// focalsv_tpu_torch/parallel/region_step.py::phase_consensus_rows_flat_plain:
+// the chunk's one uint8 buffer in wire.rows_flat_layout in, (G, bytes) uint8
+// in wire.flat_layout out (dense tracks, never RLE).
+//
+// A region's R rows hold W columns each: row r covers region columns
+// [128 qstart[r], 128 qstart[r] + W), column k of a row in the low nibble of
+// byte k for k < W/2 and in the high nibble of byte k - W/2 otherwise (0-4
+// a base or N, 5 DEL, any other code no coverage).  The (R, L) pileup never
+// exists.
+//
+// What bounds it on an H100: operations.  The noisy ONT chunk ('dense', 64,
+// 16384, 16384) at G 16 is 8.4 MB of rows, 2.5 us at 3.35 TB/s; each of the
+// two sweeps decodes and counts 16.8 M (read, column) cells, a few integer
+// operations each, some 0.006 ms for both at 16.75 T int32 operations a
+// second (PERF.md states the count).  This first version is simple: every
+// thread walks every read of its region for each tile it holds.
+//
+// Design: a cluster of nc CTAs of 512 threads a region (as B2 picks it), CTA
+// r taking the same range [c_lo, c_hi) of each half of the columns, so that
+// the byte holding column i and column i + L/2 of a track is written by one
+// CTA.  Per region:
+//  1. Site sweep.  A thread holds kCols (8) columns of a tile of 4096 and
+//     walks the region's reads.  A read whose blocks miss the warp's 256
+//     columns is skipped by the warp together; otherwise the thread takes
+//     its 8 nibbles with one 8-byte load (8 columns never straddle W/2:
+//     W and every row start are multiples of 128) and counts the six
+//     symbols in registers.  Then B2's het test and strip key; N is no
+//     allele.  A tile's counts depend on no other tile: no carries, no
+//     barrier between tiles.
+//  2. The leader, as in B2, from the merge of the cluster's keys on; only
+//     the allele bitplanes are found otherwise: a warp a (site, word of 32
+//     reads) reads each read's nibble at the site's column.
+//  3. Vote sweep: the same walk, each read weighted by its class (1, 65536
+//     or 65537, B2's packed counts), so that one pass counts both tracks;
+//     the first maximum wins, a column is covered where its sum is above 0,
+//     and B2's dense writer writes the tracks.
+// Columns past a row's end or past L are not covered; columns in
+// [ltrue, L) are counted as any other, and only the strips use ltrue.
+
+constexpr int kNoCov = 255;
+
+struct RowsSrc {
+  static __device__ void inputs(const Params& p, Ctx& c, int g,
+                                unsigned char*) {
+    const uint8_t* buf = p.buf;
+    c.rows = buf + p.in_off[IN_ROWS] + (long long)g * p.R * (p.W / 2);
+    c.qstart = reinterpret_cast<const int*>(buf + p.in_off[IN_QSTART]) +
+               (long long)g * p.R;
+    c.rv = buf + p.in_off[IN_ROWS_RV] + (long long)g * p.R;
+    c.ltrue = reinterpret_cast<const int*>(buf + p.in_off[IN_ROWS_LTRUE])[g];
+    // the same share of each half of the columns, in whole groups of kCols
+    const int groups = p.L / 2 / kCols;
+    c.c_lo = c.rank * groups / p.nc * kCols;
+    c.c_hi = (c.rank + 1) * groups / p.nc * kCols;
+    c.n_tiles = 0;
+  }
+
+  // This thread's kCols columns from col0 (a multiple of kCols; `mine`
+  // false past its range): the counts of the six symbols {A, C, G, T, N,
+  // DEL}, each read weighted by weight(r) (0: the read does not count).
+  template <class Wt>
+  static __device__ __forceinline__ void counts(const Params& p,
+                                                const Ctx& c, int col0,
+                                                bool mine, Wt weight,
+                                                int (&cnt)[kCols][6]) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+#pragma unroll
+      for (int s = 0; s < 6; ++s) cnt[j][s] = 0;
+    const int hw = p.W / 2, nb = p.W / kBlock;
+    // the blocks of the warp's 256 columns: the same for every lane
+    const int first = col0 - kCols * (int)(threadIdx.x & 31);
+    const long long blo = first / kBlock;
+    const long long bhi = (first + 32 * kCols - 1) / kBlock;
+    for (int r = 0; r < p.R; ++r) {
+      const int w = weight(r);
+      if (!w) continue;
+      const long long q = c.qstart[r];
+      if (q > bhi || q + nb <= blo) continue;   // the whole warp skips it
+      const long long k = (long long)col0 - q * kBlock;
+      if (!mine || k < 0 || k >= p.W) continue;
+      const int kk = (int)k;
+      const bool high = kk >= hw;
+      const unsigned long long v =
+          *reinterpret_cast<const unsigned long long*>(
+              c.rows + (long long)r * hw + (high ? kk - hw : kk)) >>
+          (high ? 4 : 0);
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int n = (int)(v >> (8 * j)) & 15;
+#pragma unroll
+        for (int s = 0; s < 6; ++s) cnt[j][s] += n == s ? w : 0;
+      }
+    }
+  }
+
+  static __device__ void sites(const Params& p, const Ctx& c) {
+    __syncthreads();                 // the keys are clear
+    const int strip = imax((c.ltrue + p.S - 1) / p.S, 1);
+    for (int h = 0; h < 2; ++h) {
+      const int lo = c.c_lo + h * (p.L / 2), hi = c.c_hi + h * (p.L / 2);
+      for (int t0 = lo; t0 < hi; t0 += kTile) {
+        const int col0 = t0 + threadIdx.x * kCols;
+        int cnt[kCols][6];
+        counts(p, c, col0, col0 < hi,
+               [&](int r) { return c.rv[r] ? 1 : 0; }, cnt);
+        if (col0 >= hi) continue;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int a[5] = {cnt[j][0], cnt[j][1], cnt[j][2], cnt[j][3],
+                            cnt[j][5]};
+          site_key(p, c, col0 + j, a, strip);
+        }
+      }
+    }
+  }
+
+  // The allele bitplanes of the n_het selected sites.
+  static __device__ void alleles(const Params& p, const Ctx& c, int n_het) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nw = blockDim.x >> 5, RW = p.RW, hw = p.W / 2;
+    for (int idx = warp; idx < n_het * RW; idx += nw) {
+      const int s = idx / RW, r = (idx - s * RW) * 32 + lane;
+      int v = -1;
+      if (r < p.R && c.rv[r]) {
+        const long long k = (long long)c.col[s] - (long long)c.qstart[r] * kBlock;
+        if (k >= 0 && k < p.W) {
+          const int kk = (int)k;
+          const int b = c.rows[(long long)r * hw + (kk < hw ? kk : kk - hw)];
+          const int n = (kk < hw ? b : b >> 4) & 15;
+          v = allele_of(n < 5 ? n : (n == 5 ? kDelSym : kNoCov), c.a[s]);
+        }
+      }
+      const unsigned cov = __ballot_sync(kFull, v >= 0);
+      const unsigned mnr = __ballot_sync(kFull, v == 1);
+      if (lane == 0) {
+        c.pcov[idx] = cov;
+        c.pmin[idx] = mnr;
+      }
+    }
+    for (int idx = n_het * RW + threadIdx.x; idx < p.S * RW;
+         idx += blockDim.x) {
+      c.pcov[idx] = 0u;
+      c.pmin[idx] = 0u;
+    }
+    __syncthreads();
+  }
+
+  static __device__ void votes(const Params& p, const Ctx& c,
+                               cg::cluster_group&) {
+    __syncthreads();                 // every read's class is in
+    for (int h = 0; h < 2; ++h) {
+      const int lo = c.c_lo + h * (p.L / 2), hi = c.c_hi + h * (p.L / 2);
+      for (int t0 = lo; t0 < hi; t0 += kTile) {
+        const int col0 = t0 + threadIdx.x * kCols;
+        int cnt[kCols][6];
+        counts(p, c, col0, col0 < hi,
+               [&](int r) { return class_weight(c, (unsigned)r); }, cnt);
+        // both states (bits 0-7) and both voted symbols (bits 8-15)
+        int cs[kCols];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          int st = 0, syms = 0;
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            int best = -1, sym = 0, tot = 0;
+#pragma unroll
+            for (int s = 0; s < 6; ++s) {
+              const int v = k ? hi16(cnt[j][s]) : lo16(cnt[j][s]);
+              tot += v;
+              if (v > best) { best = v; sym = s; }
+            }
+            st |= (tot > 0 ? sym : 7) << (kStateBits * k);
+            syms |= sym << (4 * k);
+          }
+          cs[j] = st | (syms << 8);
+        }
+        write_dense(p, c, col0, hi, cs);
+      }
+    }
+  }
+};
+
+template <class Src>
 __global__ void __launch_bounds__(kThreads, 1) region_step_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int g = blockIdx.x / p.nc;
-  const uint8_t* buf = p.buf;
+  unsigned char* sm = smem_raw;
   Ctx c;
-  c.ref = buf + p.in_off[IN_REF] + (long long)g * p.L;
-  c.starts = reinterpret_cast<const int*>(buf + p.in_off[IN_STARTS]) +
-             (long long)g * p.R;
-  c.ends = reinterpret_cast<const int*>(buf + p.in_off[IN_ENDS]) +
-           (long long)g * p.R;
-  c.rv = buf + p.in_off[IN_RV] + (long long)g * p.R;
-  c.sub_pos = reinterpret_cast<const int*>(buf + p.in_off[IN_SUB_POS]) +
-              (long long)g * p.Ds;
-  c.sub_read = reinterpret_cast<const int*>(buf + p.in_off[IN_SUB_READ]) +
-               (long long)g * p.Ds;
-  c.sub_sym = buf + p.in_off[IN_SUB_SYM] + (long long)g * p.Ds;
-  c.del_read = reinterpret_cast<const int*>(buf + p.in_off[IN_DEL_READ]) +
-               (long long)g * p.Dd;
-  c.del_a = reinterpret_cast<const int*>(buf + p.in_off[IN_DEL_A]) +
-            (long long)g * p.Dd;
-  c.del_b = reinterpret_cast<const int*>(buf + p.in_off[IN_DEL_B]) +
-            (long long)g * p.Dd;
-  c.ltrue = reinterpret_cast<const int*>(buf + p.in_off[IN_LTRUE])[g];
   c.out = p.out + (long long)g * p.out_stride;
   c.rank = rank;
   c.nc = p.nc;
-  // this CTA's tiles: a contiguous share of the region's
-  const int n_all = (p.L + kTile - 1) / kTile;
-  const int tlo = rank * n_all / p.nc, thi = (rank + 1) * n_all / p.nc;
-  c.c_lo = tlo * kTile;
-  c.c_hi = imin(thi * kTile, p.L);
-  c.n_tiles = thi - tlo;
-  unsigned char* sm = smem_raw;
+  Src::inputs(p, c, g, sm);
   c.keys = reinterpret_cast<unsigned long long*>(sm + p.s_keys);
   c.dif = reinterpret_cast<int*>(sm + p.s_dif);
-  const long long cta = (long long)g * kMaxCluster + rank;
-  c.events = p.s_events >= 0
-                 ? reinterpret_cast<uint32_t*>(sm + p.s_events)
-                 : p.events_g + cta * p.E;
   c.toff = reinterpret_cast<int*>(sm + p.s_toff);
   c.cur = reinterpret_cast<int*>(sm + p.s_cur);
-  c.stage = p.stage_g + cta * 6 * (p.Drle + 1);
   const long long plane = (long long)p.S * p.RW;
   uint32_t* planes = p.s_planes >= 0
                          ? reinterpret_cast<uint32_t*>(sm + p.s_planes)
@@ -1239,51 +1537,24 @@ __global__ void __launch_bounds__(kThreads, 1) region_step_kernel(Params p) {
   c.cls = sm + p.s_cls;
 
   PHASE(0);
-  clear_dif(c);
   for (int s = threadIdx.x; s < p.S; s += blockDim.x) c.keys[s] = 0ull;
-  bin_events(p, c);
-  PHASE(1);
-  sweep_sites(p, c);
+  Src::sites(p, c);
   PHASE(2);
   cluster.sync();                  // every CTA's strip keys are in
   if (rank == 0) {
-    // the best of each strip over the cluster
-    for (int r = 1; r < p.nc; ++r) {
-      const unsigned long long* keys = cluster.map_shared_rank(c.keys, r);
-      for (int s = threadIdx.x; s < p.S; s += blockDim.x)
-        if (keys[s] > c.keys[s]) c.keys[s] = keys[s];
-    }
-    __syncthreads();
-    const int n_het = compact_sites(p, c);
-    build_alleles(p, c, n_het);
-    const int nS = purify(p, c, n_het);
-    const int nB = blocks_and_init(p, c, nS);
-    for (int it = 0; it < p.mec_iters; ++it) {
-      assign(p, c, nB);
-      if (!update_h(p, c, nS)) break;  // a fixed point: the rest repeat it
-    }
-    assign(p, c, nB);
-    reads_out(p, c, nS);
-    sites_out(p, c, nS);
+    const int n_het = leader_sites(p, c, cluster);
+    Src::alleles(p, c, n_het);
+    phase_reads(p, c, n_het);
   }
   PHASE(3);
   cluster.sync();                  // every read's haplotype is in
-  // each read's class in the vote: hp 0 votes in both tracks
-  const int8_t* hp = cluster.map_shared_rank(c.hp, 0);
-  for (int r = threadIdx.x; r < p.R; r += blockDim.x)
-    c.cls[r] = c.rv[r] ? (hp[r] ? (uint8_t)hp[r] : (uint8_t)3) : (uint8_t)0;
-  clear_dif(c);                    // the planes used the leader's
-  vote_carries(p, c);
-  PHASE(4);
-  int nb[2], nd[2];
-  sweep_votes(p, c, nb, nd);
-  PHASE(5);
-  if (p.Drle > 0) finish_runs(p, c, cluster, nb, nd);
+  read_classes(p, c, cluster);
+  Src::votes(p, c, cluster);
   PHASE(6);
 }
 
-// Shared memory of a CTA: the strip keys, the union of the difference
-// arrays and (when planes_in_smem) the three planes, the events (when
+// Shared memory of a CTA: the strip keys, the union of B2's difference
+// arrays and (when planes_in_smem) the three planes, B2's events (when
 // events_in_smem), then the fixed arrays.  Offsets of what is not in shared
 // memory are -1.  Returns bytes.
 size_t carve(Params& p, bool planes_in_smem, bool events_in_smem) {
@@ -1296,7 +1567,7 @@ size_t carve(Params& p, bool planes_in_smem, bool events_in_smem) {
     return (int)at;
   };
   p.s_keys = take(8 * S, 16);
-  const size_t dif = 4ull * kRows * kTile;
+  const size_t dif = p.rows ? 0 : 4ull * kRows * kTile;
   const size_t planes = 12 * S * (size_t)p.RW;
   p.s_dif = take(planes_in_smem && planes > dif ? planes : dif, 16);
   p.s_planes = planes_in_smem ? p.s_dif : -1;
@@ -1329,8 +1600,8 @@ int device_attr(cudaDeviceAttr attr) {
   return v;
 }
 
-// The sizes, the input sections and the result stride of a chunk; an error
-// for what the kernel does not take.
+// The sizes, the input sections and the result stride of a delta chunk; an
+// error for what the kernel does not take.
 int init_params(Params& p, int G, int R, int L, int Ds, int Dd, int Drle,
                 int S) {
   if (R < 1 || R > kMaxReads || L < 1 || S < 1 || Ds < 0 || Dd < 0 ||
@@ -1354,8 +1625,45 @@ int init_params(Params& p, int G, int R, int L, int Ds, int Dd, int Drle,
   return 0;
 }
 
+// The same for a dense chunk of rows W columns wide (B3): L and W
+// multiples of 128, the result's tracks dense.
+int init_rows_params(Params& p, int G, int R, int L, int W, int S) {
+  if (R < 1 || R > kMaxReads || L < kBlock || W < kBlock || S < 1 ||
+      L % kBlock != 0 || W % kBlock != 0 || (unsigned)L > kMaxCol)
+    return (int)cudaErrorInvalidValue;
+  p.rows = true;
+  p.G = G; p.R = R; p.L = L; p.W = W; p.S = S;
+  p.Ds = p.Dd = p.Drle = p.E = 0;
+  p.RW = (R + 31) / 32;
+  const long long g = G;
+  const long long sizes[IN_ROWS_COUNT] = {g * R * (W / 2), g * R * 4, g * R,
+                                          g * 4};
+  long long off = 0;
+  for (int i = 0; i < IN_ROWS_COUNT; ++i) {
+    p.in_off[i] = off;
+    off += sizes[i];
+  }
+  p.out_stride = 4 + 8LL * S + 3LL * R + L + 2LL * (L / 8);
+  return 0;
+}
+
+void set_knobs(Params& p, int mec_iters, int min_site_depth,
+               int min_minor_count, int lo_num, int lo_den, int hi_num,
+               int hi_den, int purify_window, int purify_min_pairs,
+               int purify_num, int purify_den) {
+  p.mec_iters = mec_iters;
+  p.min_site_depth = min_site_depth;
+  p.min_minor_count = min_minor_count;
+  p.lo_num = lo_num; p.lo_den = lo_den; p.hi_num = hi_num; p.hi_den = hi_den;
+  p.purify_window = purify_window;
+  p.purify_min_pairs = purify_min_pairs;
+  p.purify_num = purify_num;
+  p.purify_den = purify_den;
+}
+
 // Whether a cluster of nc CTAs with this launch's shared memory can be
-// placed on the current card, asked once a (card, nc, bytes).
+// placed on the current card, asked once a (card, nc, bytes) and kernel.
+template <class Src>
 bool cluster_fits(const cudaLaunchConfig_t& cfg, int nc) {
   static std::mutex lock;
   static std::map<std::tuple<int, int, size_t>, bool> known;
@@ -1366,8 +1674,9 @@ bool cluster_fits(const cudaLaunchConfig_t& cfg, int nc) {
   const auto it = known.find(key);
   if (it != known.end()) return it->second;
   int active = 0;
-  const bool fits = cudaOccupancyMaxActiveClusters(&active, region_step_kernel,
-                                                   &cfg) == cudaSuccess &&
+  const bool fits = cudaOccupancyMaxActiveClusters(
+                        &active, region_step_kernel<Src>, &cfg) ==
+                        cudaSuccess &&
                     active > 0;
   cudaGetLastError();
   known[key] = fits;
@@ -1379,9 +1688,12 @@ bool cluster_fits(const cudaLaunchConfig_t& cfg, int nc) {
 // fills the SMs that one CTA a region leaves idle: the largest of 1, 2, 4
 // with a tile or more a CTA and G * nc within the SMs, or past them (a
 // second wave) where each CTA keeps 8 tiles or more, unless `cluster` names
-// one.  On an H100 that is 2 at phase 4's chunks of G 64 and 4 at its G 51,
-// L 131072 (PERF.md section 6).  The dense tracks are written by one CTA.  A
+// one.  On an H100 that is 2 at phase 4's delta chunks of G 64 and 4 at its
+// G 51, L 131072 (PERF.md section 6).  B2's dense tracks are written by one
+// CTA; B3's CTAs take a share of each half of the columns, so a cluster
+// that `cluster` names is taken even where a CTA holds less than a tile.  A
 // cluster that cannot be placed is halved.
+template <class Src>
 int plan(Params& p, int cluster, cudaLaunchConfig_t& cfg,
          cudaLaunchAttribute* attr, cudaStream_t stream) {
   const int n_tiles = (p.L + kTile - 1) / kTile;
@@ -1393,13 +1705,13 @@ int plan(Params& p, int cluster, cudaLaunchConfig_t& cfg,
            ((long long)p.G * nc * 2 <= sms || n_tiles >= 8 * nc * 2))
       nc *= 2;
   }
-  if (p.Drle == 0) nc = 1;
-  nc = imax(1, imin(nc, n_tiles));
+  if (!p.rows && p.Drle == 0) nc = 1;
+  if (!p.rows) nc = imax(1, imin(nc, n_tiles));
   const size_t limit =
       (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   for (;;) {
     p.nc = nc;
-    p.tiles_per_cta = (n_tiles + nc - 1) / nc;
+    p.tiles_per_cta = p.rows ? 0 : (n_tiles + nc - 1) / nc;
     size_t smem = 0;
     bool fits = false;
     for (int k = 0; k < 4 && !fits; ++k) {
@@ -1407,7 +1719,7 @@ int plan(Params& p, int cluster, cudaLaunchConfig_t& cfg,
       fits = smem <= limit;
     }
     if (!fits) return (int)cudaErrorInvalidValue;
-    cudaFuncSetAttribute(region_step_kernel,
+    cudaFuncSetAttribute(region_step_kernel<Src>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
     cfg = cudaLaunchConfig_t{};
@@ -1421,43 +1733,62 @@ int plan(Params& p, int cluster, cudaLaunchConfig_t& cfg,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    if (nc == 1 || cluster_fits(cfg, nc)) return 0;
+    if (nc == 1 || cluster_fits<Src>(cfg, nc)) return 0;
     nc /= 2;
   }
 }
 
-}  // namespace
-
-// The launch a chunk gets (see plan): plan_out = CTAs a region, dynamic
-// shared memory bytes a CTA, planes in shared memory (0, 1), events in
-// shared memory (0, 1), the kernel's registers a thread and its local
-// memory (spills) in bytes a thread.  Returns 0 or a CUDA error.
-extern "C" int focalsv_region_step_plan(int G, int R, int L, int Ds, int Dd,
-                                        int Drle, int S, int cluster,
-                                        int* plan_out) {
-  Params p = {};
+// plan_out (see the entries): CTAs a region, dynamic shared memory bytes a
+// CTA, planes in shared memory (0, 1), events in shared memory (0, 1), the
+// kernel's registers a thread and its local memory (spills) in bytes.
+template <class Src>
+int plan_of(Params& p, int cluster, int* plan_out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  int err = G < 1 || cluster < 0 || cluster > kMaxCluster
-                ? (int)cudaErrorInvalidValue
-                : init_params(p, G, R, L, Ds, Dd, Drle, S);
-  if (!err) err = plan(p, cluster, cfg, attr, nullptr);
+  int err = plan<Src>(p, cluster, cfg, attr, nullptr);
   if (err) return err;
   plan_out[0] = p.nc;
   plan_out[1] = (int)cfg.dynamicSmemBytes;
   plan_out[2] = p.s_planes >= 0;
   plan_out[3] = p.s_events >= 0;
   cudaFuncAttributes attrs;
-  err = (int)cudaFuncGetAttributes(&attrs, region_step_kernel);
+  err = (int)cudaFuncGetAttributes(&attrs, region_step_kernel<Src>);
   plan_out[4] = attrs.numRegs;
   plan_out[5] = (int)attrs.localSizeBytes;
   return err;
 }
 
-// cluster: CTAs a region (1, 2 or 4); 0 lets plan choose.  The wrapper's
-// scratch holds, per region, 3 * S * ceil(R / 32) words of planes, then
-// kMaxCluster times 2R + 2Dd + Ds words of events and 6 * (Drle + 1) words
-// of staged runs.
+template <class Src>
+int launch(Params& p, int cluster, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const int err = plan<Src>(p, cluster, cfg, attr,
+                            static_cast<cudaStream_t>(stream));
+  if (err) return err;
+  cudaLaunchKernelEx(&cfg, region_step_kernel<Src>, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// B2's launch of a delta chunk (see plan): plan_out = CTAs a region,
+// dynamic shared memory bytes a CTA, planes in shared memory (0, 1), events
+// in shared memory (0, 1), the kernel's registers a thread and its local
+// memory (spills) in bytes a thread.  Returns 0 or a CUDA error.
+extern "C" int focalsv_region_step_plan(int G, int R, int L, int Ds, int Dd,
+                                        int Drle, int S, int cluster,
+                                        int* plan_out) {
+  Params p = {};
+  if (G < 1 || cluster < 0 || cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  const int err = init_params(p, G, R, L, Ds, Dd, Drle, S);
+  return err ? err : plan_of<DeltaSrc>(p, cluster, plan_out);
+}
+
+// B2, kernel of a delta chunk.  cluster: CTAs a region (1, 2 or 4); 0 lets
+// plan choose.  The wrapper's scratch holds, per region, 3 * S * ceil(R /
+// 32) words of planes, then kMaxCluster times 2R + 2Dd + Ds words of events
+// and 6 * (Drle + 1) words of staged runs.
 extern "C" int focalsv_region_step(
     const void* buf, void* out, void* scratch, int G, int R, int L, int Ds,
     int Dd, int Drle, int S, int mec_iters, int min_site_depth,
@@ -1467,27 +1798,50 @@ extern "C" int focalsv_region_step(
   if (G <= 0) return 0;
   if (cluster < 0 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
   Params p = {};
-  int err = init_params(p, G, R, L, Ds, Dd, Drle, S);
+  const int err = init_params(p, G, R, L, Ds, Dd, Drle, S);
   if (err) return err;
   p.buf = static_cast<const uint8_t*>(buf);
   p.out = static_cast<uint8_t*>(out);
-  p.mec_iters = mec_iters;
-  p.min_site_depth = min_site_depth;
-  p.min_minor_count = min_minor_count;
-  p.lo_num = lo_num; p.lo_den = lo_den; p.hi_num = hi_num; p.hi_den = hi_den;
-  p.purify_window = purify_window;
-  p.purify_min_pairs = purify_min_pairs;
-  p.purify_num = purify_num;
-  p.purify_den = purify_den;
+  set_knobs(p, mec_iters, min_site_depth, min_minor_count, lo_num, lo_den,
+            hi_num, hi_den, purify_window, purify_min_pairs, purify_num,
+            purify_den);
   uint32_t* words = static_cast<uint32_t*>(scratch);
   p.planes_g = words;
   p.events_g = words + (long long)G * 3 * S * p.RW;
   p.stage_g = reinterpret_cast<int32_t*>(p.events_g + (long long)G *
                                                           kMaxCluster * p.E);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  err = plan(p, cluster, cfg, attr, static_cast<cudaStream_t>(stream));
+  return launch<DeltaSrc>(p, cluster, stream);
+}
+
+// B3's launch of a dense chunk, as focalsv_region_step_plan says it.
+extern "C" int focalsv_region_rows_plan(int G, int R, int L, int W, int S,
+                                        int cluster, int* plan_out) {
+  Params p = {};
+  if (G < 1 || cluster < 0 || cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  const int err = init_rows_params(p, G, R, L, W, S);
+  return err ? err : plan_of<RowsSrc>(p, cluster, plan_out);
+}
+
+// B3, kernel of a dense chunk (wire.rows_flat_layout).  The wrapper's
+// scratch holds 3 * S * ceil(R / 32) words of planes a region, used where
+// they do not fit in shared memory.
+extern "C" int focalsv_region_rows(
+    const void* buf, void* out, void* scratch, int G, int R, int L, int W,
+    int S, int mec_iters, int min_site_depth, int min_minor_count,
+    int lo_num, int lo_den, int hi_num, int hi_den, int purify_window,
+    int purify_min_pairs, int purify_num, int purify_den, int cluster,
+    void* stream) {
+  if (G <= 0) return 0;
+  if (cluster < 0 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  Params p = {};
+  const int err = init_rows_params(p, G, R, L, W, S);
   if (err) return err;
-  cudaLaunchKernelEx(&cfg, region_step_kernel, p);
-  return (int)cudaGetLastError();
+  p.buf = static_cast<const uint8_t*>(buf);
+  p.out = static_cast<uint8_t*>(out);
+  set_knobs(p, mec_iters, min_site_depth, min_minor_count, lo_num, lo_den,
+            hi_num, hi_den, purify_window, purify_min_pairs, purify_num,
+            purify_den);
+  p.planes_g = static_cast<uint32_t*>(scratch);
+  return launch<RowsSrc>(p, cluster, stream);
 }

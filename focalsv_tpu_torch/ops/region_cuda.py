@@ -1,13 +1,16 @@
-"""Kernel B2 on the card: the wrapper of ``csrc/region_step.cu``.
+"""Kernels B2 and B3 on the card: the wrappers of ``csrc/region_step.cu``.
 
-``phase_consensus_delta_flat_cuda`` is the counterpart of the JAX package's
-``parallel/region_step.py::phase_consensus_delta_flat``: it takes a delta
-chunk's one uint8 buffer (``wire.delta_flat_layout``) on a CUDA device and
-returns the same (G, bytes) uint8 results as the plain version,
+``phase_consensus_delta_flat_cuda`` (B2) is the counterpart of the JAX
+package's ``parallel/region_step.py::phase_consensus_delta_flat``: it takes a
+delta chunk's one uint8 buffer (``wire.delta_flat_layout``) on a CUDA device
+and returns the same (G, bytes) uint8 results as the plain version,
 ``parallel/region_step.py::phase_consensus_delta_flat_plain``, in one launch
-a chunk.  The note at the top of the CUDA source describes the design.
-There is no fallback: a buffer the kernel does not take, or a refused
-launch, raises.
+a chunk.  ``phase_consensus_rows_flat_cuda`` (B3) does the same for a dense
+chunk (``wire.rows_flat_layout``), the counterpart of
+``phase_consensus_rows_flat``, whose plain version is
+``phase_consensus_rows_flat_plain``.  The notes in the CUDA source describe
+the design.  There is no fallback: a buffer a kernel does not take, or a
+refused launch, raises.
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ import torch
 
 from focalsv_tpu_torch.ops import _build
 from focalsv_tpu_torch.ops.align_cuda import _check
-from focalsv_tpu_torch.parallel.wire import (delta_flat_layout, flat_layout,
-                                             flat_layout_rle)
+from focalsv_tpu_torch.parallel.wire import (BLOCK, delta_flat_layout,
+                                             flat_layout, flat_layout_rle,
+                                             rows_flat_layout)
 
 _lock = threading.Lock()
 _fns: dict = {}
 launches = 0             # launches of kernel B2
+rows_launches = 0        # launches of kernel B3
 # CTAs a region (a thread-block cluster of 1, 2 or 4); 0 lets the kernel
 # choose from the chunk's size and the card's SM count.  kernel_sweep and the
 # card tests set it to run each size.
@@ -36,7 +41,14 @@ _SIGNATURES = {
     "focalsv_region_step": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 19
                             + [ctypes.c_void_p]),
     "focalsv_region_step_plan": [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "focalsv_region_rows": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 17
+                            + [ctypes.c_void_p]),
+    "focalsv_region_rows_plan": [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
+# the step's knobs after max_sites, in the order the C entries take them
+KNOBS = ("mec_iters", "min_site_depth", "min_minor_count", "lo_num",
+         "lo_den", "hi_num", "hi_den", "purify_window", "purify_min_pairs",
+         "purify_num", "purify_den")
 
 
 def _kernel(name: str):
@@ -50,9 +62,16 @@ def _kernel(name: str):
 
 
 def reset_launches() -> None:
-    global launches
+    """B2's and B3's launch counts to 0."""
+    global launches, rows_launches
     with _lock:
-        launches = 0
+        launches = rows_launches = 0
+
+
+def _plan_dict(plan) -> dict:
+    return dict(cluster=plan[0], smem_bytes=plan[1],
+                planes_in_smem=bool(plan[2]), events_in_smem=bool(plan[3]),
+                registers=plan[4], local_bytes=plan[5])
 
 
 def launch_plan(G: int, R: int, L: int, Ds: int, Dd: int, Drle: int,
@@ -69,9 +88,20 @@ def launch_plan(G: int, R: int, L: int, Ds: int, Dd: int, Drle: int,
         raise RuntimeError(f"region_step kernel refuses G={G} R={R} L={L} "
                            f"Ds={Ds} Dd={Dd} Drle={Drle} S={S}: CUDA error "
                            f"{err}")
-    return dict(cluster=plan[0], smem_bytes=plan[1],
-                planes_in_smem=bool(plan[2]), events_in_smem=bool(plan[3]),
-                registers=plan[4], local_bytes=plan[5])
+    return _plan_dict(plan)
+
+
+def rows_launch_plan(G: int, R: int, L: int, W: int, S: int,
+                     cluster: int | None = None) -> dict:
+    """How B3 launches a dense chunk on the current card, as launch_plan
+    says it for B2 (events_in_smem is False: B3 has no events)."""
+    plan = (ctypes.c_int * 6)()
+    err = _kernel("focalsv_region_rows_plan")(
+        G, R, L, W, S, CLUSTER if cluster is None else cluster, plan)
+    if err != 0:
+        raise RuntimeError(f"region_rows kernel refuses G={G} R={R} L={L} "
+                           f"W={W} S={S}: CUDA error {err}")
+    return _plan_dict(plan)
 
 
 def scratch_words(G: int, R: int, Ds: int, Dd: int, Drle: int,
@@ -145,4 +175,66 @@ def phase_consensus_delta_flat_cuda(
                            f"error {err} (G={G}, R={R}, L={L}, S={S})")
     with _lock:
         launches += 1
+    return out
+
+
+def phase_consensus_rows_flat_cuda(
+        buf: torch.Tensor, *, G: int, R: int, L: int, W: int,
+        max_sites: int, mec_iters: int, min_site_depth: int,
+        min_minor_count: int, lo_num: int, lo_den: int, hi_num: int,
+        hi_den: int, purify_window: int, purify_min_pairs: int,
+        purify_num: int, purify_den: int) -> torch.Tensor:
+    """Kernel B3: (G, bytes) uint8 in ``wire.flat_layout(R, L, max_sites)``,
+    as ``phase_consensus_rows_flat_plain`` computes them, from the dense
+    chunk's contiguous 1-D uint8 buffer in ``wire.rows_flat_layout(G, R,
+    W)`` on a CUDA device; one launch."""
+    global rows_launches
+    device = buf.device
+    _check("buf", buf, torch.uint8, 1, device)
+    S = int(max_sites)
+    sizes = dict(G=G, R=R, L=L, W=W, S=S)
+    if any(int(v) < 1 for v in sizes.values()):
+        raise ValueError(f"G, R, L, W and max_sites must be positive: "
+                         f"{sizes}")
+    if L % BLOCK or W % BLOCK:
+        raise ValueError(f"L={L} and W={W} must be multiples of {BLOCK}")
+    if L >= 1 << 26:
+        raise ValueError(f"L={L} is past the kernel's 2^26 columns")
+    if R > MAX_READS:
+        raise ValueError(f"R={R} is past the kernel's {MAX_READS} reads")
+    lay = rows_flat_layout(G, R, W)
+    if buf.numel() != lay["__total__"][1]:
+        raise ValueError(f"buf holds {buf.numel()} bytes, the layout of "
+                         f"G={G} R={R} W={W} {lay['__total__'][1]}")
+    # the rows are read 8 bytes at a time
+    if (buf.data_ptr() % 8 or lay["qstart"][0] % 4
+            or lay["ltrue"][0] % 4):
+        raise ValueError("the rows of buf must be 8-byte aligned and its "
+                         "int32 sections 4-byte aligned")
+    nbytes = flat_layout(R, L, S)["__total__"][1]
+    if device.type != "cuda":
+        raise ValueError(f"phase_consensus_rows_flat_cuda needs a CUDA "
+                         f"buffer, got {device}")
+    knobs = dict(mec_iters=mec_iters, min_site_depth=min_site_depth,
+                 min_minor_count=min_minor_count, lo_num=lo_num,
+                 lo_den=lo_den, hi_num=hi_num, hi_den=hi_den,
+                 purify_window=purify_window,
+                 purify_min_pairs=purify_min_pairs, purify_num=purify_num,
+                 purify_den=purify_den)
+    out = torch.empty((G, nbytes), dtype=torch.uint8, device=device)
+    # B3 uses the planes of B2's scratch layout alone
+    scratch = torch.empty(scratch_words(G, R, 0, 0, 0, S), dtype=torch.int32,
+                          device=device)
+    step = _kernel("focalsv_region_rows")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = step(buf.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                   G, R, L, W, S, *(knobs[k] for k in KNOBS), CLUSTER,
+                   stream)
+    if err != 0:
+        raise RuntimeError(f"region_rows kernel launch failed with CUDA "
+                           f"error {err} (G={G}, R={R}, L={L}, W={W}, "
+                           f"S={S})")
+    with _lock:
+        rows_launches += 1
     return out

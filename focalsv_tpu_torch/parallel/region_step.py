@@ -26,11 +26,15 @@ division, so the results are byte-identical to the reference's and to the
 host implementations -- the contract tests/test_torch_region_step.py
 enforces.
 
-On a card, the delta entry `phase_consensus_delta_flat` is kernel B2, one
+On a card, the delta entry `phase_consensus_delta_flat` is kernel B2 and
+the dense-rows entry `phase_consensus_rows_flat` kernel B3, each one
 hand-written launch a chunk (csrc/region_step.cu through ops/region_cuda.py);
-the PyTorch body here is its plain version
-(`phase_consensus_delta_flat_plain`), which the CPU runs and the card tests
-hold the kernel to.  The dense entries stay PyTorch on every device.
+the PyTorch bodies here are their plain versions
+(`phase_consensus_delta_flat_plain`, `phase_consensus_rows_flat_plain`),
+which the CPU runs and the card tests hold the kernels to.  A CUDA caller of
+`phase_consensus_rows_packed` reaches B3 too.  The unpacked-tile entries
+(`phase_consensus_batch`, `phase_consensus_batch_packed`, for tests and dry
+runs) stay PyTorch on every device.
 
 Transfer format: each chunk arrives as ONE uint8 buffer (parallel/wire.py
 delta_flat_layout / rows_flat_layout) and results leave as one flat uint8
@@ -704,18 +708,37 @@ def phase_consensus_rows_packed(packed_rows: torch.Tensor,
     """COMPACT row tiles: packed_rows (G, R, W//2) split-half packed rows,
     row_qstart (G, R) int32 region BLOCK index of each row (the host
     pre-shifts each row by start % BLOCK), read_valid (G, R) bool, ltrue
-    (G,) int32 true region lengths (None = L).  Rows expand into the (R, L)
-    pileup on the device, BLOCK-contiguous chunks at a time, at most
-    DENSE_INNER expanded pileups at once.  Output: (G, bytes) uint8 in
-    flat_layout."""
+    (G,) int32 true region lengths (None = L).  Output: (G, bytes) uint8 in
+    flat_layout.  On a card the three arrays are packed into one
+    rows_flat_layout buffer there and go to kernel B3; on the CPU to the
+    plain version."""
     kw = _step_kw(kw)
+    G, R = packed_rows.shape[:2]
+    dev = packed_rows.device
+    if ltrue is None:
+        ltrue = torch.full((G,), L, dtype=i32, device=dev)
+    if dev.type == "cuda":
+        buf = torch.cat([
+            packed_rows.to(torch.uint8).reshape(-1),
+            _u8(row_qstart.to(device=dev, dtype=i32)).reshape(-1),
+            read_valid.to(device=dev, dtype=torch.uint8).reshape(-1),
+            _u8(ltrue.to(device=dev, dtype=i32)).reshape(-1)])
+        return region_cuda.phase_consensus_rows_flat_cuda(
+            buf, G=G, R=R, L=L, W=W, **kw)
+    return _rows_packed_plain(packed_rows, row_qstart, read_valid, ltrue,
+                              L=L, W=W, **kw)
+
+
+def _rows_packed_plain(packed_rows, row_qstart, read_valid, ltrue, *,
+                       L: int, W: int, **kw) -> torch.Tensor:
+    """The plain version of the dense step on any device: rows expand into
+    the (R, L) pileup, BLOCK-contiguous chunks at a time, at most
+    DENSE_INNER expanded pileups at once."""
     if L % BLOCK or W % BLOCK:
         raise ValueError(f"L={L} and W={W} must be multiples of {BLOCK}")
     nb_out, nb_in = L // BLOCK, W // BLOCK
     G, R = packed_rows.shape[:2]
     dev = packed_rows.device
-    if ltrue is None:
-        ltrue = torch.full((G,), L, dtype=i32, device=dev)
 
     def one(g0, g1):
         n = g1 - g0
@@ -734,7 +757,23 @@ def phase_consensus_rows_packed(packed_rows: torch.Tensor,
     return _dense_inner(G, one)
 
 
-def phase_consensus_rows_flat(
+def phase_consensus_rows_flat(buf: torch.Tensor, *, G: int, R: int, L: int,
+                              W: int, **kw) -> torch.Tensor:
+    """Production entry for COMPACT row chunks (the dense encoding of noisy
+    tiles): the chunk's one uint8 buffer in (rows_flat_layout), (G, bytes)
+    uint8 out in flat_layout.
+
+    A CUDA buffer goes to kernel B3 (ops/region_cuda.py, one launch a
+    chunk), a CPU buffer to the plain version below.  There is no fallback:
+    a buffer the kernel does not take raises."""
+    kw = _step_kw(kw)
+    if buf.device.type == "cuda":
+        return region_cuda.phase_consensus_rows_flat_cuda(
+            buf, G=G, R=R, L=L, W=W, **kw)
+    return phase_consensus_rows_flat_plain(buf, G=G, R=R, L=L, W=W, **kw)
+
+
+def phase_consensus_rows_flat_plain(
     buf: torch.Tensor,       # (total,) uint8, rows_flat_layout
     *,
     G: int, R: int, L: int, W: int,
@@ -748,11 +787,12 @@ def phase_consensus_rows_flat(
     purify_min_pairs: int = 4,
     purify_num: int = 1, purify_den: int = 2,
 ) -> torch.Tensor:
-    """Production entry for COMPACT row chunks (the dense fallback):
-    unpacks rows_flat_layout on the buffer's device and runs
-    phase_consensus_rows_packed."""
+    """The plain PyTorch version of kernel B3 on any device: unpacks
+    rows_flat_layout on the buffer's device and returns what
+    phase_consensus_rows_flat does.  The CPU path runs it; chip_smoke.py
+    and the card tests run it on the card to hold the kernel to it."""
     seg = _sections(buf, rows_flat_layout(G, R, W))
-    return phase_consensus_rows_packed(
+    return _rows_packed_plain(
         seg("rows").reshape(G, R, W // 2),
         _u8_to_i32(seg("qstart"), G, R),
         seg("rv").reshape(G, R) != 0,

@@ -24,9 +24,9 @@ phase 4 (testing/region_cases.py::pipeline_delta_chunks) and on every case
 of testing/region_cases.py: the kernel with the cluster size it chooses and
 with each cluster size it can take, held against its plain version byte for
 byte.  ``--against DIR`` builds DIR's focalsv_tpu_torch/csrc/region_step.cu
-(another checkout of the repository, whose entry takes no cluster argument)
-and times it in turns with this one (this, other, other, this), the two held
-against each other byte for byte.  ``--phases`` adds B2's time by phase at
+(another checkout of the repository, whose entry may or may not take a
+cluster argument) and times it in turns with this one (this, other, other,
+this), the two held against each other byte for byte.  ``--phases`` adds B2's time by phase at
 those chunks, from a build that stamps the card's clock at each boundary.  Needs a CUDA device; exits 1 without one.
 """
 
@@ -122,8 +122,10 @@ def b4_case(name, dirs, q_len, t_len, d_lo, W, Lq, n_plain, batches,
 
 def other_region_step(tree: str):
     """B2 of another checkout, built from its csrc/region_step.cu, as a
-    function of a chunk buffer and the step's arguments (that entry takes
-    no cluster argument)."""
+    function of a chunk buffer and the step's arguments.  An entry that
+    takes a cluster argument gets 0, the kernel's own choice, and the
+    scratch of this checkout's scratch_words; one without it, the older
+    layout, its planes alone."""
     from focalsv_tpu_torch.parallel.wire import flat_layout, flat_layout_rle
     src = Path(tree) / "focalsv_tpu_torch" / "csrc" / "region_step.cu"
     tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
@@ -138,9 +140,11 @@ def other_region_step(tree: str):
                 print(f"[b2] against: {line.strip()}", flush=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+    from focalsv_tpu_torch.ops.region_cuda import scratch_words
+    with_cluster = "int cluster, void* stream" in src.read_text()
     fn = ctypes.CDLL(str(so)).focalsv_region_step
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (
+        19 if with_cluster else 18) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def step(buf, *, G, R, L, Ds, Dd, Drle, max_sites, mec_iters,
@@ -150,12 +154,14 @@ def other_region_step(tree: str):
         lay = flat_layout_rle(R, S, Drle) if Drle else flat_layout(R, L, S)
         out = torch.empty((G, lay["__total__"][1]), dtype=torch.uint8,
                           device=buf.device)
-        scratch = torch.empty(G * 3 * S * -(-R // 32), dtype=torch.int32,
-                              device=buf.device)
+        words = (scratch_words(G, R, Ds, Dd, Drle, S) if with_cluster
+                 else G * 3 * S * -(-R // 32))
+        scratch = torch.empty(words, dtype=torch.int32, device=buf.device)
         err = fn(buf.data_ptr(), out.data_ptr(), scratch.data_ptr(), G, R, L,
                  Ds, Dd, Drle, S, mec_iters, min_site_depth, min_minor_count,
                  lo_num, lo_den, hi_num, hi_den, purify_window,
                  purify_min_pairs, purify_num, purify_den,
+                 *((0,) if with_cluster else ()),
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"the other B2 failed: CUDA error {err}")

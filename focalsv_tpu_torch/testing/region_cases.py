@@ -1,5 +1,6 @@
 """Seeded delta chunks for the region step (kernel B2 and its plain
-version), shared by chip_smoke.py and the tests.
+version) and dense chunks (kernel B3 and its plain version), shared by
+chip_smoke.py and the tests.
 
 Each case is a chunk buffer packed by ``wire.pack_delta_chunk`` with the
 step's arguments.  The tiles keep the host encoder's invariants: reads lie
@@ -19,13 +20,28 @@ range, and a chunk of 51 regions.
 
     from focalsv_tpu_torch.testing.region_cases import CASES, build
     buf, args = build("hifi_blocks")   # args: G, R, L, Ds, Dd, Drle, knobs
+
+The dense cases (``ROWS_CASES``, ``build_rows``) are chunks packed by
+``wire.pack_rows_chunk``: each read a row of symbols from its first column
+on, in a row W columns wide that starts on a block of 128.  They cover N and
+DEL symbols at sites, no-coverage codes inside a row, rows that cross many
+blocks, rows that run past the true length and past L, W below L and W
+equal to L, padded regions, 0 and 1 het sites, crowded strips with tied
+balances, a MEC that settles late, R 1024 with S 1024 (the bitplanes in
+device memory), a chunk of 51 regions, and sites on both sides of the
+column-tile edges at 4096, 8192 (half of L, where B3's CTAs split) and
+12288.
+
+    buf, args = build_rows("rows_symbols")   # args: G, R, L, W, knobs
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from focalsv_tpu_torch.parallel.wire import pack_delta_chunk
+from focalsv_tpu_torch.parallel.wire import (BLOCK, DEL_SYM, NOCOV,
+                                             pack_delta_chunk,
+                                             pack_row_tile, pack_rows_chunk)
 
 
 class Tile:
@@ -395,3 +411,201 @@ def build(name: str):
     """(buf, args) of one case: the chunk's uint8 buffer and the step's
     keyword arguments (G, R, L, Ds, Dd, Drle and any knob it sets)."""
     return CASES[name]()
+
+
+# -- dense (rows) chunks ------------------------------------------------------
+
+class RowsTile:
+    """The wire attributes of one dense region (``pack_rows_chunk`` reads):
+    each read's symbols (0-4, DEL_SYM, NOCOV) from region column starts[i]
+    on, placed at starts[i] % BLOCK of a row W columns wide."""
+
+    def __init__(self, rows, starts, region_len: int, W: int):
+        starts = np.asarray(starts, np.int64)
+        offs = starts % BLOCK
+        assert all(o + len(r) <= W for o, r in zip(offs, rows)), W
+        self.nib = pack_row_tile([np.asarray(r, np.uint8) for r in rows], W,
+                                 offsets=offs)
+        self.q_starts = (starts // BLOCK).astype(np.int32)
+        self.region_len = int(region_len)
+
+
+def rows_from_delta(t: Tile, W: int) -> RowsTile:
+    """A delta tile's reads as dense rows: the reference over each span, its
+    substitutions, DEL over its deletion runs."""
+    rows = []
+    for r, (s, n) in enumerate(zip(t.row_starts, t.row_lens)):
+        row = t.ref_codes[s:s + n].copy()
+        pos, read, sym = t.subs
+        mine = read == r
+        row[pos[mine] - s] = sym[mine]
+        dr, da, db = t.dels
+        for a, b in zip(da[dr == r], db[dr == r]):
+            row[a - s:b - s] = DEL_SYM
+        rows.append(row)
+    return RowsTile(rows, t.row_starts, t.region_len, W)
+
+
+def noisy_rows_tile(rng, L_true, n_reads, read_len, n_sites, W, *,
+                    sites=None, err=0.05, del_rate=0.02, n_rate=0.01,
+                    site_del=0.0, site_n=0.0, hole_frac=0.0, over=0,
+                    full=False) -> RowsTile:
+    """Noisy reads of two haplotypes as dense rows: hap-1 reads carry
+    another base at each het site (``sites``, or n_sites drawn); every
+    column of a read takes a substitution (err), a DEL (del_rate) or an N
+    (n_rate); at a site a read shows DEL with chance site_del and N with
+    chance site_n; hole_frac of the reads hold a run of no-coverage codes
+    inside their row; reads may run ``over`` columns past L_true.
+    ``full``: every read spans the region and half are hap-1 (tied
+    balances)."""
+    span = L_true + over
+    ref = rng.integers(0, 4, span).astype(np.uint8)
+    if sites is None:
+        sites = np.sort(rng.choice(np.arange(1, L_true - 1), n_sites,
+                                   replace=False))
+    sites = np.asarray(sites, np.int64)
+    alt = ((ref[sites] + rng.integers(1, 4, len(sites))) % 4).astype(
+        np.uint8)
+    rows, starts = [], []
+    for i in range(n_reads):
+        if full:
+            s, e, hap = 0, L_true, i % 2
+        else:
+            n = read_len + int(rng.integers(-read_len // 4, read_len // 4 + 1))
+            s = int(rng.integers(0, max(span - n, 1)))
+            e, hap = min(s + n, span), int(rng.integers(0, 2))
+        row = ref[s:e].copy()
+        u = rng.random(e - s)
+        sub = u < err
+        row[sub] = (row[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        row[(u >= err) & (u < err + del_rate)] = DEL_SYM
+        row[(u >= err + del_rate) & (u < err + del_rate + n_rate)] = 4
+        inside = (sites >= s) & (sites < e)
+        for c, a in zip(sites[inside], alt[inside]):
+            v = rng.random()
+            row[c - s] = (DEL_SYM if v < site_del else
+                          4 if v < site_del + site_n else
+                          a if hap else ref[c])
+        if rng.random() < hole_frac and e - s > 60:
+            a = int(rng.integers(0, e - s - 50))
+            row[a:a + int(rng.integers(5, 50))] = NOCOV
+        rows.append(row)
+        starts.append(s)
+    return RowsTile(rows, starts, L_true, W)
+
+
+def rows_chunk(tiles, *, R, L, W, **knobs):
+    """Pack dense tiles (None = a padded slot) into one chunk
+    (wire.rows_flat_layout).  Returns (buf, args)."""
+    G = len(tiles)
+    buf = pack_rows_chunk(tiles, list(range(G)), G, R, W)
+    return buf, dict(G=G, R=R, L=L, W=W, **knobs)
+
+
+# most dense cases share one shape (and one compile of the JAX function)
+_STD = dict(R=64, L=8192, W=4096)
+
+
+def _rows_symbols():
+    # N and DEL at sites, no-coverage runs inside rows, and a padded slot
+    rng = np.random.default_rng(20)
+    return rows_chunk([noisy_rows_tile(rng, 8000, 60, 3000, 30, 4096,
+                                       site_del=0.15, site_n=0.1,
+                                       hole_frac=0.3),
+                       noisy_rows_tile(rng, 6000, 40, 2500, 12, 4096,
+                                       err=0.1, del_rate=0.03,
+                                       site_del=0.3),
+                       None,
+                       noisy_rows_tile(rng, 7000, 48, 3000, 20, 4096,
+                                       n_rate=0.05, hole_frac=0.6)], **_STD)
+
+
+def _rows_past_ltrue_and_l():
+    # reads that run past the true length and past L (their rows' ends
+    # hold columns the region does not have), and true lengths below S
+    rng = np.random.default_rng(21)
+    return rows_chunk([noisy_rows_tile(rng, 7600, 50, 3000, 20, 4096,
+                                       over=1500),
+                       noisy_rows_tile(rng, 300, 12, 200, 6, 4096, over=80),
+                       noisy_rows_tile(rng, 8192, 60, 3000, 25, 4096,
+                                       over=1800),
+                       noisy_rows_tile(rng, 5000, 30, 2500, 10, 4096,
+                                       over=3000)], **_STD)
+
+
+def _rows_zero_and_one_het():
+    # low noise, so that no column but the one site is het
+    rng = np.random.default_rng(22)
+    clean = dict(err=0.002, del_rate=0.0, n_rate=0.0)
+    return rows_chunk([noisy_rows_tile(rng, 5000, 30, 2000, 0, 4096, **clean),
+                       noisy_rows_tile(rng, 5000, 30, 2000, 0, 4096,
+                                       sites=[2500], **clean),
+                       None, None], **_STD)
+
+
+def _rows_mec_settles_late():
+    return rows_chunk([rows_from_delta(mec_tile(np.random.default_rng(7)),
+                                       4096), None, None, None], **_STD)
+
+
+def _rows_w_equals_l():
+    rng = np.random.default_rng(23)
+    return rows_chunk([noisy_rows_tile(rng, 4096, 30, 0, 12, 4096,
+                                       full=True, err=0.08),
+                       noisy_rows_tile(rng, 3900, 30, 2500, 10, 4096)],
+                      R=32, L=4096, W=4096)
+
+
+def _rows_crowded_strips():
+    # 16 strips of 250 columns, 120 het columns with equal balances
+    rng = np.random.default_rng(24)
+    return rows_chunk([noisy_rows_tile(rng, 4000, 24, 0, 120, 4096,
+                                       full=True, err=0.0, del_rate=0.0,
+                                       n_rate=0.0)],
+                      R=32, L=4096, W=4096, max_sites=16)
+
+
+def _rows_r1024_s1024():
+    rng = np.random.default_rng(8)
+    t = haplotype_tile(rng, 16000, 1024, 2000, 700, err=0.001)
+    return rows_chunk([rows_from_delta(t, 2688)], R=1024, L=16384, W=2688,
+                      max_sites=1024)
+
+
+def _rows_g51():
+    rng = np.random.default_rng(25)
+    tiles = [noisy_rows_tile(rng, int(rng.integers(2000, 5000)), 16, 1500,
+                             4, 2048) for _ in range(48)]
+    return rows_chunk(tiles + [None] * 3, R=16, L=8192, W=2048)
+
+
+def _rows_tile_edges():
+    # sites on both sides of the tile edges 4096 and 12288 and of 8192, the
+    # middle of L, where each of B3's CTAs takes a share of both halves
+    rng = np.random.default_rng(26)
+    edges = [4095, 4096, 8191, 8192, 12287, 12288]
+    extra = [1000, 2500, 6000, 10000, 14000, 15500]
+    return rows_chunk([noisy_rows_tile(rng, 16384, 60, 3000, 0, 4096,
+                                       sites=sorted(edges + extra)),
+                       noisy_rows_tile(rng, 16000, 60, 3000, 0, 4096,
+                                       sites=edges, site_del=0.2)],
+                      R=64, L=16384, W=4096)
+
+
+ROWS_CASES = {
+    "rows_symbols": _rows_symbols,
+    "rows_past_ltrue_and_l": _rows_past_ltrue_and_l,
+    "rows_zero_and_one_het": _rows_zero_and_one_het,
+    "rows_mec_settles_late": _rows_mec_settles_late,
+    "rows_w_equals_l": _rows_w_equals_l,
+    "rows_crowded_strips": _rows_crowded_strips,
+    "rows_r1024_s1024": _rows_r1024_s1024,
+    "rows_g51": _rows_g51,
+    "rows_tile_edges": _rows_tile_edges,
+}
+
+
+def build_rows(name: str):
+    """(buf, args) of one dense case: the chunk's uint8 buffer and the
+    step's keyword arguments (G, R, L, W and any knob it sets)."""
+    return ROWS_CASES[name]()

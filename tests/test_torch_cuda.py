@@ -1,7 +1,8 @@
 """Tests of the port that need the card: kernels B1 (banded DP), B2 (the
-delta region step) and B4 (traceback) and the region step on CUDA against
-their plain versions, the mesh-sharded region step and DP against the
-unsharded ones, byte for byte (tolerance 0), and an NCCL group of one.
+delta region step), B3 (the dense region step) and B4 (traceback) and the
+region step on CUDA against their plain versions, the mesh-sharded region
+step and DP against the unsharded ones, byte for byte (tolerance 0), and an
+NCCL group of one.
 
 They skip without a CUDA device.  This file imports no jax, so that it runs
 on a machine without it:
@@ -253,6 +254,8 @@ def test_sharded_region_step_on_card_matches_unsharded(cuda, encoding):
     key = (keys[0][0],) + tuple(max(k[i] for k in keys)
                                 for i in range(1, len(keys[0])))
     buf = dx.pack_chunk(tiles + [None], [0, 1, 2, 3], key, 4)
+    from focalsv_tpu_torch.ops import region_cuda
+    region_cuda.reset_launches()
     want = np.asarray(dx.dispatch_packed(buf, key, 4, cfg, cuda))
     mesh = _two_shards(cuda)
     pending = [dx.dispatch_packed(buf, key, 4, cfg, None, mesh)
@@ -260,6 +263,10 @@ def test_sharded_region_step_on_card_matches_unsharded(cuda, encoding):
     for res in pending:
         np.testing.assert_array_equal(np.asarray(res), want)
     assert all(res.is_ready() for res in pending)
+    # B2 a delta shard, B3 a dense one: once unsharded, once a shard after
+    counts = (region_cuda.launches, region_cuda.rows_launches)
+    n = 1 + 4 * mesh.size
+    assert counts == ((n, 0) if encoding == "delta" else (0, n))
 
 
 @pytest.mark.cuda
@@ -465,3 +472,108 @@ def test_named_card_runs_without_a_mesh(cuda, monkeypatch, tmp_path):
     assert region_cuda.launches > before
     assert ((tmp_path / "FocalSV_Final_SV.vcf").read_text()
             == (d / "expected.vcf").read_text())
+
+
+ROWS_CASES = sorted(region_cases.ROWS_CASES)
+
+
+def _rows_kernel_vs_plain(cuda, buf, args):
+    """Kernel B3 through the dense entry on the card, one launch, against
+    the plain version on the card and on the CPU."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
+    dev = torch.from_numpy(buf).to(cuda)
+    before = region_cuda.rows_launches
+    got = rs.phase_consensus_rows_flat(dev, **args)
+    torch.cuda.synchronize()
+    assert region_cuda.rows_launches == before + 1
+    want = rs.phase_consensus_rows_flat_plain(dev, **args)
+    assert torch.equal(got, want)
+    on_cpu = rs.phase_consensus_rows_flat(torch.from_numpy(buf), **args)
+    assert torch.equal(got.cpu(), on_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ROWS_CASES)
+def test_rows_kernel_matches_plain_on_card(cuda, name):
+    _rows_kernel_vs_plain(cuda, *region_cases.build_rows(name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("name", ["rows_symbols", "rows_tile_edges",
+                                  "rows_r1024_s1024", "rows_g51"])
+def test_rows_kernel_at_each_cluster_size(cuda, monkeypatch, cluster, name):
+    """B3 with 1, 2 and 4 CTAs a region, each taking a share of both halves
+    of the columns, against its plain version."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
+    buf, args = region_cases.build_rows(name)
+    kw = {**rs.STEP_DEFAULTS, **args}
+    plan = region_cuda.rows_launch_plan(
+        **{k: kw[k] for k in ("G", "R", "L", "W")}, S=kw["max_sites"],
+        cluster=cluster)
+    assert plan["cluster"] == cluster
+    monkeypatch.setattr(region_cuda, "CLUSTER", cluster)
+    _rows_kernel_vs_plain(cuda, buf, args)
+
+
+def _noisy_tiles(seeds, ref_len=15_000):
+    """ONT tiles of noisy simulated regions (10 % substitutions, 3 %
+    insertions, 3 % deletions, 30x): they take the dense encoding."""
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    from focalsv_tpu_torch.testing import simulate as sim
+    cfg = preset("ONT")
+    tiles = [dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, cfg) for rg in (
+        sim.simulate_region(seed=s, ref_len=ref_len, coverage=30.0,
+                            n_snps=12, sub_rate=0.10, ins_rate=0.03,
+                            del_rate=0.03) for s in seeds)]
+    return cfg, tiles
+
+
+@pytest.mark.cuda
+def test_rows_dispatch_of_noisy_chunk_on_card(cuda):
+    """dispatch_packed on a noisy dense chunk: one B3 launch, the CPU's
+    bytes."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    cfg, tiles = _noisy_tiles((3000, 3004))
+    keys = {dx._bucket_key(t, cfg) for t in tiles}
+    assert len(keys) == 1 and next(iter(keys))[0] == "dense"
+    key = keys.pop()
+    G = dx._batch_size(key, cfg, 1)
+    buf = dx.pack_chunk(tiles + [None], [0, 1] + [2] * (G - 2), key, G)
+    before = region_cuda.rows_launches
+    on_card = np.asarray(dx.dispatch_packed(buf, key, G, cfg, cuda))
+    assert region_cuda.rows_launches == before + 1
+    on_cpu = np.asarray(dx.dispatch_packed(buf, key, G, cfg,
+                                           torch.device("cpu")))
+    np.testing.assert_array_equal(on_card, on_cpu)
+
+
+@pytest.mark.cuda
+def test_rows_packed_entry_on_card_reaches_the_kernel(cuda):
+    """phase_consensus_rows_packed with CUDA arrays packs them into one
+    buffer there and launches B3 once; the plain version's bytes."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
+    from focalsv_tpu_torch.parallel.wire import rows_flat_layout
+    buf, args = region_cases.build_rows("rows_symbols")
+    G, R, W = args["G"], args["R"], args["W"]
+    lay = rows_flat_layout(G, R, W)
+    dev = torch.from_numpy(buf).to(cuda)
+
+    def sect(name):
+        a, b = lay[name]
+        return dev[a:b]
+
+    before = region_cuda.rows_launches
+    got = rs.phase_consensus_rows_packed(
+        sect("rows").reshape(G, R, W // 2),
+        sect("qstart").view(torch.int32).reshape(G, R),
+        sect("rv").reshape(G, R) != 0, sect("ltrue").view(torch.int32),
+        L=args["L"], W=W)
+    torch.cuda.synchronize()
+    assert region_cuda.rows_launches == before + 1
+    assert torch.equal(got, rs.phase_consensus_rows_flat_plain(dev, **args))

@@ -1,10 +1,11 @@
-"""Kernel B2 (csrc/region_step.cu) from the CPU: its plain version against
-the JAX package's phase_consensus_delta_flat on every case of
-testing/region_cases.py, numpy models of the reformulations the kernel
-rests on held against the JAX functions, the routing of a CPU buffer, and
-the wrapper's checks.  Tolerance 0: the step is integer arithmetic plus one
-correctly rounded f32 division.  The kernel itself runs only on a card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+"""Kernels B2 and B3 (csrc/region_step.cu) from the CPU: their plain
+versions against the JAX package's phase_consensus_delta_flat and
+phase_consensus_rows_flat on every case of testing/region_cases.py, numpy
+models of the reformulations B2 rests on held against the JAX functions, the
+routing of a CPU buffer, the wrappers' checks, and the kernels' own source
+built for the CPU (testing/host_kernel.py) against the plain versions.
+Tolerance 0: the step is integer arithmetic plus one correctly rounded f32
+division.  On a card: tests/test_torch_cuda.py, chip_smoke.py."""
 
 import jax
 import numpy as np
@@ -14,10 +15,13 @@ import torch
 from focalsv_tpu.parallel import region_step as jrs
 from focalsv_tpu_torch.ops import region_cuda
 from focalsv_tpu_torch.parallel import region_step as trs
-from focalsv_tpu_torch.parallel.wire import delta_flat_layout, flat_layout_rle
+from focalsv_tpu_torch.parallel.wire import (delta_flat_layout,
+                                             flat_layout_rle,
+                                             rows_flat_layout)
 from focalsv_tpu_torch.testing import region_cases
 
 CASES = sorted(region_cases.CASES)
+ROWS_CASES = sorted(region_cases.ROWS_CASES)
 KNOBS = tuple(trs.STEP_DEFAULTS)
 
 
@@ -651,3 +655,112 @@ def test_kernel_source_on_the_cpu_matches_plain(name, cluster):
     want = trs.phase_consensus_delta_flat_plain(torch.from_numpy(buf), **kw)
     np.testing.assert_array_equal(
         host_kernel.region_step(buf, **kw, cluster=cluster), want.numpy())
+
+
+
+# -- B3: the dense (rows) step ----------------------------------------------
+
+@pytest.mark.parametrize("name", ROWS_CASES)
+def test_rows_plain_matches_jax_on_case(name):
+    """phase_consensus_rows_flat_plain against the JAX package's
+    phase_consensus_rows_flat, byte for byte."""
+    buf, args = region_cases.build_rows(name)
+    want = np.asarray(jrs.phase_consensus_rows_flat(buf, **args))
+    got = trs.phase_consensus_rows_flat_plain(torch.from_numpy(buf), **args)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_rows_cases_hold_what_they_name():
+    """The dense cases' regions have the sites they are built for: none and
+    one, a full strip set where strips are crowded, S sites at R 1024."""
+    def n_sites(name):
+        buf, args = region_cases.build_rows(name)
+        out = trs.phase_consensus_rows_flat_plain(torch.from_numpy(buf),
+                                                  **args)
+        return out[:, :4].contiguous().view(torch.int32).reshape(-1).tolist()
+
+    assert n_sites("rows_zero_and_one_het") == [0, 1, 0, 0]
+    assert n_sites("rows_crowded_strips") == [16]
+    assert n_sites("rows_tile_edges")[0] >= 6
+    _buf, args = region_cases.build_rows("rows_r1024_s1024")
+    assert (args["R"], args["max_sites"]) == (1024, 1024)
+    # three planes of S rows by R bits: past a CTA's 232,448 bytes
+    assert 3 * args["max_sites"] * args["R"] // 8 > 232448
+
+
+def test_rows_cpu_buffer_takes_the_plain_version(monkeypatch):
+    buf, args = region_cases.build_rows("rows_zero_and_one_het")
+
+    def no_kernel(*a, **k):
+        raise AssertionError("a CPU buffer reached B3's wrapper")
+
+    monkeypatch.setattr(region_cuda, "phase_consensus_rows_flat_cuda",
+                        no_kernel)
+    region_cuda.reset_launches()
+    tbuf = torch.from_numpy(buf)
+    got = trs.phase_consensus_rows_flat(tbuf, **args)
+    assert region_cuda.rows_launches == 0
+    assert torch.equal(got, trs.phase_consensus_rows_flat_plain(tbuf,
+                                                                **args))
+    # the packed-arrays entry on the CPU: the same plain version
+    G, R, W = args["G"], args["R"], args["W"]
+    lay = rows_flat_layout(G, R, W)
+
+    def sect(name):
+        a, b = lay[name]
+        return tbuf[a:b]
+
+    packed = trs.phase_consensus_rows_packed(
+        sect("rows").reshape(G, R, W // 2),
+        sect("qstart").view(torch.int32).reshape(G, R),
+        sect("rv").reshape(G, R) != 0, sect("ltrue").view(torch.int32),
+        L=args["L"], W=W)
+    assert torch.equal(packed, got)
+
+
+def test_rows_wrapper_refuses_what_the_kernel_does_not_take():
+    buf, args = region_cases.build_rows("rows_zero_and_one_het")
+    kw = {**trs.STEP_DEFAULTS, **args}
+    tbuf = torch.from_numpy(buf)
+    cuda_rows = region_cuda.phase_consensus_rows_flat_cuda
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_rows(tbuf, **kw)
+    with pytest.raises(TypeError, match="uint8"):
+        cuda_rows(tbuf.view(torch.int32), **kw)
+    with pytest.raises(ValueError, match="bytes"):
+        cuda_rows(tbuf[:-4], **kw)
+    with pytest.raises(ValueError, match="1-D"):
+        cuda_rows(tbuf.reshape(2, -1), **kw)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        cuda_rows(tbuf, **{**kw, "L": 8200})
+    with pytest.raises(ValueError, match="multiples of 128"):
+        cuda_rows(tbuf, **{**kw, "W": 4100})
+    with pytest.raises(ValueError, match="32767 reads"):
+        cuda_rows(tbuf, **{**kw, "R": 32768})
+    # int32 sections off their boundary: R * G not a multiple of 4
+    lay = rows_flat_layout(1, 9, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_rows(torch.zeros(lay["__total__"][1], dtype=torch.uint8),
+                  **{**kw, "G": 1, "R": 9, "W": 128})
+    assert region_cuda.rows_launches == 0
+
+
+@pytest.mark.parametrize("name,cluster", [
+    ("rows_symbols", 0), ("rows_symbols", 2), ("rows_past_ltrue_and_l", 4),
+    ("rows_zero_and_one_het", 1), ("rows_mec_settles_late", 2),
+    ("rows_w_equals_l", 4), ("rows_crowded_strips", 1),
+    ("rows_r1024_s1024", 1), ("rows_r1024_s1024", 4),
+    ("rows_tile_edges", 1), ("rows_tile_edges", 2), ("rows_tile_edges", 4),
+])
+def test_rows_kernel_source_on_the_cpu_matches_plain(name, cluster):
+    """B3's source (csrc/region_step.cu, RowsSrc) compiled by g++ against
+    the CPU stand-in for the CUDA runtime, with 1, 2 or 4 CTAs a region
+    (0: the kernel's choice on a card of 132 SMs): the bytes of the plain
+    version."""
+    from focalsv_tpu_torch.testing import host_kernel
+    buf, args = region_cases.build_rows(name)
+    kw = {**trs.STEP_DEFAULTS, **args}
+    want = trs.phase_consensus_rows_flat_plain(torch.from_numpy(buf), **kw)
+    np.testing.assert_array_equal(
+        host_kernel.region_rows(buf, **kw, cluster=cluster), want.numpy())
