@@ -48,7 +48,8 @@ on the card in phases, and exits non-zero at the first phase that fails:
    version, in a subprocess): the card's VCF must equal the CPU's, B3 must
    launch once per chunk and no region may fall back to the host; the host
    VCF is compared and the result printed; B3 against its plain version at
-   every noisy chunk, timed in turns;
+   every noisy chunk, timed in turns, and at one chunk of the smallest
+   bucket that 16 further noisy regions fill (seeds 4000+i);
 7. the same 32 regions as per-region BAM and reference files through the
    multi-process executor (pipeline/mp_exec.py) with 8 children, two passes
    on the warm executor: records equal to the in-process build_tile ->
@@ -72,10 +73,11 @@ on the card in phases, and exits non-zero at the first phase that fails:
    unsharded step, byte for byte; sharded_banded_align and
    sharded_sv_candidate_step (B1 once per shard) against the unsharded B1
    and the plain version; run_target_mode through the mesh on phase 6's 32
-   guided regions, equal to phase 6's device VCF; dryrun_multichip; two
-   dist_worker ranks on phase 6's BED through the collective gather (NCCL
-   with a card each when there are two cards, else gloo with both ranks on
-   the one card) against the file merge of two in-process hosts; and NCCL
+   guided regions, equal to phase 6's device VCF; dryrun_multichip (B2's
+   and B3's launches counted); two dist_worker ranks on phase 6's BED
+   through the collective gather (NCCL with a card each when there are two
+   cards, else gloo with both ranks on the one card) against the file merge
+   of two in-process hosts; and NCCL
    at world size 1 (initialize, an all_gather of phase 6's record payload,
    shutdown).
 
@@ -138,7 +140,10 @@ B2_OPS_PER_ENTRY = 10
 B3_OPS_PER_CELL = 4
 NOISE = {"HIFI": {},
          "CLR": dict(sub_rate=0.04, ins_rate=0.04, del_rate=0.02),
-         # noisy reads of older CLR/ONT basecalls: every tile goes dense
+         # substitution-heavy noisy reads: every tile takes the dense
+         # encoding on its own (the delta encoding costs 9 bytes a
+         # substitution, 12 a deletion run and nothing an insertion, the
+         # rows half a byte a column)
          "NOISY": dict(sub_rate=0.10, ins_rate=0.03, del_rate=0.03)}
 N_NOISY_REGIONS = 8
 # kernel B2's and B3's launches on each path that runs the region step, each
@@ -409,12 +414,12 @@ B1_CASES = [
 
 # -- phase 4 ----------------------------------------------------------------
 
-def _simulate(n, dtype="HIFI", seed0=1000):
+def _simulate(n, dtype="HIFI", seed0=1000, sizes=SIZE_MIX):
     from focalsv_tpu_torch.testing import simulate as sim
     noise = NOISE[dtype]
     out = []
     for i in range(n):
-        L = SIZE_MIX[i % len(SIZE_MIX)]
+        L = sizes[i % len(sizes)]
         out.append(sim.simulate_region(seed=seed0 + i, ref_len=L,
                                        coverage=COVERAGE,
                                        n_snps=max(10, L // 1200), **noise))
@@ -509,9 +514,32 @@ def rows_cells(buf: np.ndarray, kw) -> int:
     return int(np.maximum(hi - lo, 0)[rv].sum())
 
 
+def rows_bytes(buf: np.ndarray, kw) -> int:
+    """The bytes of a dense chunk that B3 must read: each valid read's row
+    bytes that hold a column in [0, L) (byte j of a row holds its columns j
+    and j + W/2), and the qstart, rv and ltrue sections whole."""
+    from focalsv_tpu_torch.parallel.wire import BLOCK, rows_flat_layout
+    G, R, L, W = (kw[k] for k in ("G", "R", "L", "W"))
+    lay = rows_flat_layout(G, R, W)
+    q = buf[slice(*lay["qstart"])].view(np.int32).astype(np.int64)
+    rv = buf[slice(*lay["rv"])] != 0
+    half = W // 2
+    # the row's columns in [0, L), relative to the row's first column
+    lo = np.clip(-q * BLOCK, 0, W)
+    hi = np.clip(L - q * BLOCK, lo, W)
+    # bytes of the first half's columns, of the second half's, and both
+    a0, a1 = np.minimum(lo, half), np.minimum(hi, half)
+    b0, b1 = np.maximum(lo, half) - half, np.maximum(hi, half) - half
+    both = np.maximum(np.minimum(a1, b1) - np.maximum(a0, b0), 0)
+    touched = (a1 - a0) + (b1 - b0) - both
+    small = sum(lay[k][1] - lay[k][0] for k in ("qstart", "rv", "ltrue"))
+    return int(touched[rv].sum()) + small
+
+
 def b3_bound(buf, dev_buf, out, kw) -> tuple[float, str]:
-    """B3's least time on the card for one dense chunk: its bytes (the chunk
-    read once, the results written once) over the memory rate, against its
+    """B3's least time on the card for one dense chunk: its bytes (the rows
+    of its valid reads and its small sections read once, rows_bytes; the
+    results written once) over the memory rate, against its
     integer operations over the int32 rate: B3_OPS_PER_CELL a cell of a row
     in each of the two sweeps (rows_cells counts this run's cells), and
     B2_OPS_PER_ENTRY a (read, site) entry of each MEC round the data needs
@@ -527,7 +555,7 @@ def b3_bound(buf, dev_buf, out, kw) -> tuple[float, str]:
     entries = int(n_sites.sum()) * kw["R"] * (rounds + 1)
     ops = (2 * rows_cells(buf, kw) * B3_OPS_PER_CELL
            + entries * B2_OPS_PER_ENTRY)
-    t_bytes = (dev_buf.numel() + out.numel()) / HBM_BYTES_PER_S * 1e3
+    t_bytes = (rows_bytes(buf, kw) + out.numel()) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
@@ -665,7 +693,8 @@ def against_plain(case, buf, kw, cpu_out=None) -> dict:
     plan = launch_plan(kw)
     row = dict(case=case, L=kw["L"], max_abs_err=err, ms=(k1 + k2) / 2,
                plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by, **plan)
-    shape = (f"W={kw['W']} cells={rows_cells(buf, kw)}" if dense
+    shape = (f"W={kw['W']} cells={rows_cells(buf, kw)} "
+             f"row_bytes={rows_bytes(buf, kw)}" if dense
              else f"Drle={kw['Drle']}")
     log(f"[{name.lower()}] {case}: G={kw['G']} R={kw['R']} L={kw['L']} "
         f"{shape} S={kw['max_sites']} max_abs_err={err} (card plain and "
@@ -704,24 +733,37 @@ def region_case_parity() -> tuple[list[dict], list[dict]]:
              for name in sorted(region_cases.ROWS_CASES)])
 
 
+PROFILE_TRIES = 8
+
+
 def profile_chunk(buf, key, G, cfg, top: int = 10) -> None:
     """Print one chunk's card time by kernel name (torch.profiler): the top
-    kernels by their summed time, and how many launches the chunk takes."""
+    kernels by their summed time, and how many launches the chunk takes.
+    The card's tracer sometimes hands the profiler no records, or only some
+    of them, for a dispatch; a profile that does not list the region-step
+    kernel is taken again, up to PROFILE_TRIES times."""
     from torch.profiler import ProfilerActivity, profile
 
     from focalsv_tpu_torch.pipeline import device_exec as dx
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        np.asarray(dx.dispatch_packed(buf, key, G, cfg, DEVICE))
+    for attempt in range(1, PROFILE_TRIES + 1):
         sync()
-    rows = []
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            rows.append((us, e.count, e.key))
-    if not rows:
-        raise AssertionError(f"torch.profiler recorded no device time for "
-                             f"the region step of bucket {key}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            np.asarray(dx.dispatch_packed(buf, key, G, cfg, DEVICE))
+            sync()
+        rows = []
+        for e in prof.key_averages():
+            us = e.self_device_time_total
+            if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+                rows.append((us, e.count, e.key))
+        if any("region_step_kernel" in name for _us, _n, name in rows):
+            break
+        log(f"[profile] {key}: try {attempt} of {PROFILE_TRIES} recorded "
+            f"{len(rows)} names and not the region-step kernel")
+    else:
+        raise AssertionError(f"torch.profiler did not record the region "
+                             f"step's kernel for bucket {key} in "
+                             f"{PROFILE_TRIES} tries")
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
@@ -999,9 +1041,35 @@ def noisy_slice(work: str) -> list[dict]:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"noisy slice checks failed: {failed}")
-    # B3 at each noisy chunk, as the run packed them (launches not counted)
-    return [against_plain(f"noisy {key}", buf, rows_kwargs(key, G, cfg))
-            for cfg, key, G, _n, buf in region_chunks([(cfg, tiles)], 1)]
+    # B3 at each noisy chunk, as the run packed them, and at a chunk that
+    # noisy regions fill (launches not counted)
+    rows = [against_plain(f"noisy {key} real={n_real}", buf,
+                          rows_kwargs(key, G, cfg))
+            for cfg, key, G, n_real, buf in region_chunks([(cfg, tiles)], 1)]
+    return rows + [full_noisy_chunk(cfg, keys[0])]
+
+
+def full_noisy_chunk(cfg, key) -> dict:
+    """B3 against its plain version at one chunk of the bucket key with
+    every slot a real noisy region (seeds 4000+i, at the bucket's region
+    size): phase 6b's chunks hold one or two regions each."""
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    G = dx._batch_size(key, cfg, 1)
+    size = next(s for s in SIZE_MIX if dx._len_bucket(s) == key[2])
+    t0 = time.perf_counter()
+    regions = _simulate(G, "NOISY", seed0=4000, sizes=(size,))
+    tiles = [dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, cfg)
+             for rg in regions]
+    chunks = list(region_chunks([(cfg, tiles)], 1))
+    log(f"[noisy] {G} regions of {size} bp simulated and tiled in "
+        f"{time.perf_counter() - t0:.1f} s: chunks "
+        f"{[(k, g, n) for _c, k, g, n, _b in chunks]}")
+    if len(chunks) != 1 or chunks[0][1] != key or chunks[0][3] != G:
+        raise AssertionError(f"the noisy regions did not fill one {key} "
+                             f"chunk")
+    _c, key, G, n_real, buf = chunks[0]
+    return against_plain(f"noisy full {key} real={n_real}", buf,
+                         rows_kwargs(key, G, cfg))
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -1359,8 +1427,10 @@ def sharded_dp(rng, mesh) -> tuple[int, int]:
                                                                 mesh=mesh)
     sync()
     launches_dp = align_cuda.launches
+    reset_counts()
     t0 = time.perf_counter()
     dryrun.dryrun_multichip(mesh.size, devices=list(mesh.devices))
+    record_counts("dry_run")
     log(f"[mesh] dryrun_multichip on {mesh!r}: passed in "
         f"{time.perf_counter() - t0:.2f} s")
     launches = align_cuda.launches
@@ -1709,10 +1779,10 @@ def main() -> int:
         "ms_by_chunk": {f"L{r['L']}": r["ms"] for r in b2},
         "bound_ms_by_chunk": {f"L{r['L']}": r["bound_ms"] for r in b2}})
     for path in ("region_step_chunks", "noisy_target_mode",
-                 "sharded_region_step"):
+                 "sharded_region_step", "dry_run"):
         if B3_LAUNCHES.get(path, 0) == 0:
             raise AssertionError(f"B3 was not launched on the path {path}")
-    noisy = min(b3_noisy, key=lambda r: r["L"])   # the chunk at L 16384
+    noisy = b3_noisy[-1]           # the full noisy chunk at L 16384
     kernels.append({
         "name": "region_rows (B3)", "route": "cuda",
         "source": "focalsv_tpu_torch/csrc/region_step.cu",

@@ -25,8 +25,10 @@ of testing/region_cases.py: the kernel with the cluster size it chooses and
 with each cluster size it can take, held against its plain version byte for
 byte.  ``--against DIR`` builds DIR's focalsv_tpu_torch/csrc/region_step.cu
 (another checkout of the repository, whose entry may or may not take a
-cluster argument) and times it in turns with this one (this, other, other,
-this), the two held against each other byte for byte.  ``--phases`` adds B2's time by phase at
+cluster argument) and this checkout's, and calls both through the same bare
+entry (no wrapper: its checks and launch plan cost host time at every
+launch), timed in turns (this, other, other, this) and held against each
+other byte for byte.  ``--phases`` adds B2's time by phase at
 those chunks, from a build that stamps the card's clock at each boundary.  Needs a CUDA device; exits 1 without one.
 """
 
@@ -121,8 +123,9 @@ def b4_case(name, dirs, q_len, t_len, d_lo, W, Lq, n_plain, batches,
 
 
 def other_region_step(tree: str):
-    """B2 of another checkout, built from its csrc/region_step.cu, as a
-    function of a chunk buffer and the step's arguments.  An entry that
+    """B2 of a checkout (this one or another), built from its
+    csrc/region_step.cu, as a function of a chunk buffer and the step's
+    arguments, with no wrapper around the entry.  An entry that
     takes a cluster argument gets 0, the kernel's own choice, and the
     scratch of this checkout's scratch_words; one without it, the older
     layout, its planes alone."""
@@ -137,7 +140,7 @@ def other_region_step(tree: str):
                              text=True)
         for line in (res.stdout + res.stderr).splitlines():
             if "registers" in line or "spill" in line:
-                print(f"[b2] against: {line.strip()}", flush=True)
+                print(f"[b2] {tree}: {line.strip()}", flush=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
     from focalsv_tpu_torch.ops.region_cuda import scratch_words
@@ -239,7 +242,10 @@ def b2_sweep(against: str | None) -> bool:
     from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.parallel import region_step as rs
     from focalsv_tpu_torch.testing import region_cases
-    other = other_region_step(against) if against else None
+    other = mine = None
+    if against:
+        other = other_region_step(against)
+        mine = other_region_step(str(Path(__file__).resolve().parents[2]))
     cases = [(str(key), buf, args)
              for key, buf, args in region_cases.pipeline_delta_chunks()]
     cases += [(name, *region_cases.build(name))
@@ -265,16 +271,17 @@ def b2_sweep(against: str | None) -> bool:
                 f"smem={auto['smem_bytes']} "
                 f"planes_in_smem={auto['planes_in_smem']} "
                 f"events_in_smem={auto['events_in_smem']}")
+        line += f" ms={time_ms(kernel, 10):.4f}"
         if other is not None:
-            same = same and torch.equal(other(dev, **kw), want)
-            k1, o1 = time_ms(kernel, 10), time_ms(lambda: other(dev, **kw),
-                                                  10)
-            o2, k2 = time_ms(lambda: other(dev, **kw), 10), time_ms(kernel,
-                                                                    10)
-            line += (f" ms={(k1 + k2) / 2:.4f} ({k1:.4f},{k2:.4f}) "
-                     f"against_ms={(o1 + o2) / 2:.4f} ({o1:.4f},{o2:.4f})")
-        else:
-            line += f" ms={time_ms(kernel, 10):.4f}"
+            same = (same and torch.equal(other(dev, **kw), want)
+                    and torch.equal(mine(dev, **kw), want))
+            k1, o1 = (time_ms(lambda: mine(dev, **kw), 10),
+                      time_ms(lambda: other(dev, **kw), 10))
+            o2, k2 = (time_ms(lambda: other(dev, **kw), 10),
+                      time_ms(lambda: mine(dev, **kw), 10))
+            line += (f" bare_ms={(k1 + k2) / 2:.4f} ({k1:.4f},{k2:.4f}) "
+                     f"against_ms={(o1 + o2) / 2:.4f} ({o1:.4f},{o2:.4f}) "
+                     f"bare_over_against={(k1 + k2) / (o1 + o2):.3f}")
         for nc in (1, 2, 4):
             plan = region_cuda.launch_plan(**shape, S=kw["max_sites"],
                                            cluster=nc)

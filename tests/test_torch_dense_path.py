@@ -3,7 +3,9 @@ CLI's entry point, on the CPU: one 15 kb region at 30x with 10 %
 substitutions, 3 % insertions and 3 % deletions takes the dense encoding on
 its own, and the port's run_target_mode in device mode writes the JAX
 package's records.  On a card the same path runs kernel B3
-(chip_smoke.py's noisy phase)."""
+(chip_smoke.py's noisy phase).  Also which encoding noisy reads take in
+both packages: substitution-heavy reads go dense, indel-heavy ones stay
+delta."""
 
 import dataclasses
 import json
@@ -14,6 +16,7 @@ import torch
 import focalsv_tpu.io.bam as bamio
 from focalsv_tpu.config import preset
 from focalsv_tpu.io.fasta import write_fasta
+from focalsv_tpu.pipeline import device_exec as jdx
 from focalsv_tpu.pipeline import main as jmain
 from focalsv_tpu.testing import simulate as sim
 from focalsv_tpu_torch.config import config_from_reference
@@ -80,3 +83,24 @@ def test_noisy_region_takes_the_dense_step_and_matches_jax(tmp_path,
     _, got_recs = read_vcf(got)
     assert [r.to_line() for r in got_recs] == [r.to_line() for r in want_recs]
     assert {r.info["SVTYPE"] for r in got_recs} == {"DEL", "INS"}
+
+
+@pytest.mark.parametrize("noise,encoding", [
+    (NOISE, "dense"),
+    # on the wire the delta encoding costs 9 bytes a substitution, 12 a
+    # deletion run and nothing an insertion, the rows half a byte a column:
+    # noisy reads whose errors are mostly indels stay delta
+    (dict(sub_rate=0.03, ins_rate=0.07, del_rate=0.06), "delta"),
+    (dict(sub_rate=0.04, ins_rate=0.03, del_rate=0.05), "delta"),
+], ids=["substitution_heavy", "insertion_heavy", "deletion_heavy"])
+def test_encoding_of_noisy_reads_follows_substitutions(noise, encoding):
+    """Which encoding a 15 kb region at 30x takes under the ONT preset: the
+    port's tile and bucket equal the JAX package's."""
+    kw = dict(seed=4000, ref_len=15_000, coverage=30.0, n_snps=12, **noise)
+    rg = sim.simulate_region(**kw)
+    want = jdx.build_tile(rg.reads, rg.ref, 0, rg.chrom, preset("ONT"))
+    trg = tsim.simulate_region(**kw)
+    got = dx.build_tile(trg.reads, trg.ref, 0, trg.chrom, tpreset("ONT"))
+    assert got.encoding == want.encoding == encoding
+    assert (dx._bucket_key(got, tpreset("ONT"))
+            == jdx._bucket_key(want, preset("ONT")))
