@@ -48,8 +48,9 @@ on the card in phases, and exits non-zero at the first phase that fails:
    version, in a subprocess): the card's VCF must equal the CPU's, B3 must
    launch once per chunk and no region may fall back to the host; the host
    VCF is compared and the result printed; B3 against its plain version at
-   every noisy chunk, timed in turns, and at one chunk of the smallest
-   bucket that 16 further noisy regions fill (seeds 4000+i);
+   every noisy chunk, timed in turns, and at a chunk of the smallest and
+   one of the largest bucket that 16 further noisy regions fill (seeds
+   4000+i);
 7. the same 32 regions as per-region BAM and reference files through the
    multi-process executor (pipeline/mp_exec.py) with 8 children, two passes
    on the warm executor: records equal to the in-process build_tile ->
@@ -134,17 +135,19 @@ B4_OPS_PER_STEP = 10
 # site) entry of a MEC round (the assignment's and the vote's bit tests)
 B2_OPS_PER_COLUMN = 100
 B2_OPS_PER_ENTRY = 10
+# card cycles a timed run of queued calls waits behind (some 10 ms, past
+# the host's time to queue 20 calls of a wrapper)
+QUEUE_CYCLES = 20_000_000
 # kernel B3's integer operations per (read, column) cell of a row in each
 # of its two sweeps: the nibble's shift and mask, its symbol's compare and
 # its count's add; MEC entries as B2's
 B3_OPS_PER_CELL = 4
 NOISE = {"HIFI": {},
-         "CLR": dict(sub_rate=0.04, ins_rate=0.04, del_rate=0.02),
-         # substitution-heavy noisy reads: every tile takes the dense
-         # encoding on its own (the delta encoding costs 9 bytes a
-         # substitution, 12 a deletion run and nothing an insertion, the
-         # rows half a byte a column)
-         "NOISY": dict(sub_rate=0.10, ins_rate=0.03, del_rate=0.03)}
+         "CLR": dict(sub_rate=0.04, ins_rate=0.04, del_rate=0.02)}
+# phase 6b's substitution-heavy noisy reads (region_cases.NOISY_READS):
+# every tile takes the dense encoding on its own (the delta encoding costs 9
+# bytes a substitution, 12 a deletion run and nothing an insertion, the rows
+# half a byte a column)
 N_NOISY_REGIONS = 8
 # kernel B2's and B3's launches on each path that runs the region step, each
 # read from its count, set to 0 just before the path
@@ -174,8 +177,12 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card over reps calls (CUDA events)."""
+def time_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean milliseconds of fn() on the card over reps calls (CUDA events).
+    ``queued``: the stream first sleeps (QUEUE_CYCLES) while the host
+    queues the calls, so that the card runs them back to back and the time
+    is the card's alone, not the host's time to issue a call where that is
+    longer."""
     if DEVICE.type != "cuda":        # a CPU rehearsal of the script
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -183,6 +190,8 @@ def time_ms(fn, reps: int) -> float:
         return (time.perf_counter() - t0) * 1e3 / reps
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -686,19 +695,22 @@ def against_plain(case, buf, kw, cpu_out=None) -> dict:
     host = out.cpu().numpy()
     err = int(np.abs(host.astype(np.int16) - cpu_out.astype(np.int16)).max())
     err = max(err, int((out.int() - on_card.int()).abs().max()))
-    k1, p1 = time_ms(kernel, 20), time_ms(plain, 2)
-    p2, k2 = time_ms(plain, 2), time_ms(kernel, 20)
+    k1, p1 = time_ms(kernel, 20, queued=True), time_ms(plain, 2)
+    p2, k2 = time_ms(plain, 2), time_ms(kernel, 20, queued=True)
+    call = time_ms(kernel, 20)
     bound, by = (b3_bound(buf, dev, out, kw) if dense
                  else b2_bound(dev, out, kw))
     plan = launch_plan(kw)
     row = dict(case=case, L=kw["L"], max_abs_err=err, ms=(k1 + k2) / 2,
-               plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by, **plan)
+               call_ms=call, plain_ms=(p1 + p2) / 2, bound_ms=bound,
+               bound_by=by, **plan)
     shape = (f"W={kw['W']} cells={rows_cells(buf, kw)} "
              f"row_bytes={rows_bytes(buf, kw)}" if dense
              else f"Drle={kw['Drle']}")
     log(f"[{name.lower()}] {case}: G={kw['G']} R={kw['R']} L={kw['L']} "
         f"{shape} S={kw['max_sites']} max_abs_err={err} (card plain and "
-        f"CPU) kernel_ms={k1:.4f},{k2:.4f} plain_ms={p1:.2f},{p2:.2f} "
+        f"CPU) kernel_ms={k1:.4f},{k2:.4f} call_ms={call:.4f} "
+        f"plain_ms={p1:.2f},{p2:.2f} "
         f"bound_ms={bound:.4f} bound_by={by} "
         f"share_of_bound={bound / ((k1 + k2) / 2):.3f} "
         + " ".join(f"{k}={v}" for k, v in plan.items()))
@@ -970,10 +982,10 @@ def noisy_slice(work: str) -> list[dict]:
     the card, on the CPU and in host mode; then B3 against its plain
     version at every noisy chunk.  Returns B3's rows of those chunks."""
     from focalsv_tpu_torch.config import preset
-    from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.pipeline import device_exec as dx
+    from focalsv_tpu_torch.testing import region_cases
     t0 = time.perf_counter()
-    regions = _simulate(N_NOISY_REGIONS, "NOISY", seed0=3000)
+    regions = region_cases.noisy_regions(N_NOISY_REGIONS, 3000)
     cfg = preset("ONT")
     tiles = [dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, cfg)
              for rg in regions]
@@ -1046,30 +1058,21 @@ def noisy_slice(work: str) -> list[dict]:
     rows = [against_plain(f"noisy {key} real={n_real}", buf,
                           rows_kwargs(key, G, cfg))
             for cfg, key, G, n_real, buf in region_chunks([(cfg, tiles)], 1)]
-    return rows + [full_noisy_chunk(cfg, keys[0])]
+    return rows + [full_noisy_chunk(key)
+                   for key in region_cases.FULL_ROWS_KEYS]
 
 
-def full_noisy_chunk(cfg, key) -> dict:
+def full_noisy_chunk(key) -> dict:
     """B3 against its plain version at one chunk of the bucket key with
-    every slot a real noisy region (seeds 4000+i, at the bucket's region
-    size): phase 6b's chunks hold one or two regions each."""
-    from focalsv_tpu_torch.pipeline import device_exec as dx
-    G = dx._batch_size(key, cfg, 1)
-    size = next(s for s in SIZE_MIX if dx._len_bucket(s) == key[2])
+    every slot a real noisy region (testing/region_cases.py::
+    full_rows_chunk, seeds 4000+i, at the bucket's region size): phase 6b's
+    chunks hold one or two regions each."""
+    from focalsv_tpu_torch.testing import region_cases
     t0 = time.perf_counter()
-    regions = _simulate(G, "NOISY", seed0=4000, sizes=(size,))
-    tiles = [dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, cfg)
-             for rg in regions]
-    chunks = list(region_chunks([(cfg, tiles)], 1))
-    log(f"[noisy] {G} regions of {size} bp simulated and tiled in "
-        f"{time.perf_counter() - t0:.1f} s: chunks "
-        f"{[(k, g, n) for _c, k, g, n, _b in chunks]}")
-    if len(chunks) != 1 or chunks[0][1] != key or chunks[0][3] != G:
-        raise AssertionError(f"the noisy regions did not fill one {key} "
-                             f"chunk")
-    _c, key, G, n_real, buf = chunks[0]
-    return against_plain(f"noisy full {key} real={n_real}", buf,
-                         rows_kwargs(key, G, cfg))
+    key, n_real, buf, args = region_cases.full_rows_chunk(key)
+    log(f"[noisy] {n_real} regions simulated and tiled into one {key} "
+        f"chunk in {time.perf_counter() - t0:.1f} s")
+    return against_plain(f"noisy full {key} real={n_real}", buf, args)
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -1782,7 +1785,9 @@ def main() -> int:
                  "sharded_region_step", "dry_run"):
         if B3_LAUNCHES.get(path, 0) == 0:
             raise AssertionError(f"B3 was not launched on the path {path}")
-    noisy = b3_noisy[-1]           # the full noisy chunk at L 16384
+    # the full noisy chunk at L 16384
+    noisy = next(r for r in b3_noisy
+                 if r["case"].startswith("noisy full") and r["L"] == 16384)
     kernels.append({
         "name": "region_rows (B3)", "route": "cuda",
         "source": "focalsv_tpu_torch/csrc/region_step.cu",

@@ -89,6 +89,13 @@
 //  - Events binned by tile: integer adds commute, so the order in which a
 //    bucket's events land changes nothing, and a tile's carry is the sum of
 //    the events before it.
+//  - Reads binned by tile (B3): likewise, neither the order in which a
+//    tile's list holds its reads nor the order of its groups changes a
+//    count, and a read that meets no column of a tile adds nothing there.
+//  - Column words (B3): six 5-bit fields count at most 31 reads before
+//    they are added to the int counts; codes past 5 add nothing.
+//  - CTA ranges cut by read cover (B3): a column's counts depend on no
+//    other column, so where a range ends changes nothing but who counts it.
 //  - Packed counts: the sum of a + 65536 b over events is exact in int32
 //    while every partial count of either half lies in (-32768, 32768).
 //  - Bitplanes in place of the (R, S) int8 matrix: A == h, A == 1 - h and
@@ -111,6 +118,7 @@
 //    test and take their vote from the span count alone.
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdlib.h>
@@ -129,7 +137,8 @@ constexpr int kCols = 8;                  // columns a thread holds in a tile
 constexpr int kTile = kCols * kThreads;   // columns of a tile
 constexpr int kTileBits = 12;             // log2(kTile)
 constexpr int kRows = 7;                  // span, deletion, 5 substitution rows
-constexpr int kMaxCluster = 4;            // CTAs a region, at most
+constexpr int kMaxCluster = 4;            // CTAs a region, at most (B2)
+constexpr int kMaxRowsCluster = 8;        // CTAs a region, at most (B3)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDelSym = 254;
 constexpr unsigned kMaxCol = (1u << 26) - 1;   // columns fit 26 key bits
@@ -155,7 +164,10 @@ struct Params {
   uint8_t* out;
   uint32_t* planes_g;         // the planes when they are not in shared memory
   uint32_t* events_g;         // the events when they are not in shared memory
+  uint16_t* list_g;           // B3's read lists when not in shared memory
+  long long list_stride;      // entries of a CTA's lists in list_g
   int32_t* stage_g;           // runs of a CTA past the leader, per track
+  unsigned long long* stamps;  // phase stamps (kernel_sweep's build alone)
   bool rows;                  // a dense chunk (B3): W is its row width
   int G, R, L, W, Ds, Dd, Drle, S, RW, nc, E, tiles_per_cta;
   int mec_iters, min_site_depth, min_minor_count, lo_num, lo_den, hi_num,
@@ -164,7 +176,7 @@ struct Params {
   long long out_stride;
   // shared memory, byte offsets: the union (difference arrays or planes)
   // first
-  int s_keys, s_dif, s_planes, s_events, s_toff, s_cur;
+  int s_keys, s_dif, s_planes, s_events, s_list, s_q, s_meta, s_toff, s_cur;
   int s_wsum, s_wscan, s_wlast, s_misc, s_col, s_tcol, s_blk, s_bstart, s_hm,
       s_a, s_ta, s_h, s_hn, s_lnk, s_hp, s_cls;
 };
@@ -183,16 +195,22 @@ struct Ctx {
   const int* del_b;
   const uint8_t* rows;        // (R, W / 2) split-half nibbles (B3)
   const int* qstart;          // (R,) first block of each row (B3)
+  int* qs;                    // qstart staged in shared memory, or null
+  const int* sq;              // qs, or qstart where it is not staged
+  uint16_t* list;             // B3: this CTA's reads, listed by tile
+  uint8_t* ring;              // B3: the stages of row bytes
+  int2* meta;                 // B3: (kStages, kGroup) first column, class
   int ltrue;
   uint8_t* out;
   int rank, nc;               // this CTA in its region's cluster
   // B2: its columns [c_lo, c_hi) in n_tiles tiles; B3: the same range of
-  // each half of the columns, [c_lo, c_hi) and [c_lo + L/2, c_hi + L/2)
-  int c_lo, c_hi, n_tiles;
+  // each half of the columns, [c_lo, c_hi) and [c_lo + L/2, c_hi + L/2),
+  // end to end a run of 2 hl columns in n_tiles tiles
+  int c_lo, c_hi, n_tiles, hl;
   unsigned long long* keys;   // (S,) best key of each strip in this CTA
   int* dif;                   // (kRows, kTile) difference arrays of a tile
   uint32_t* events;           // this CTA's events, bucketed by tile
-  int* toff;                  // (n_tiles + 1,) first event of each tile
+  int* toff;                  // (n_tiles + 1,) first event (B3: read) of a tile
   int* cur;                   // (n_tiles,) scatter cursors
   int32_t* stage;             // (2, 3, Drle + 1) runs staged by a CTA > 0
   uint32_t* pcov;             // (S, RW) covered bits
@@ -378,6 +396,22 @@ __device__ __forceinline__ int class_weight(const Ctx& c, unsigned read) {
   return (k & 1) + ((k & 2) << 15);
 }
 
+// Counts of n_tiles buckets (toff) to offsets (toff, n_tiles + 1 of them)
+// and scatter cursors (cur).  Every thread calls it.
+__device__ void counts_to_offsets(const Ctx& c, int nt) {
+  int run = 0;
+  for (int t0 = 0; t0 <= nt; t0 += blockDim.x) {
+    const int t = t0 + threadIdx.x;
+    const int n = t < nt ? c.toff[t] : 0;
+    int tot;
+    const int off = run + block_excl_scan(n, c.wsum, tot);
+    if (t <= nt) c.toff[t] = off;
+    if (t < nt) c.cur[t] = off;
+    run += tot;
+  }
+  __syncthreads();
+}
+
 // Bin this CTA's events by tile; the site sweep's span and deletion counts
 // at c_lo from the events before it go to misc.
 __device__ void bin_events(const Params& p, const Ctx& c) {
@@ -405,18 +439,7 @@ __device__ void bin_events(const Params& p, const Ctx& c) {
     atomicAdd(&c.misc[M_CARRY_D], carry_d);
   }
   __syncthreads();
-  // counts to offsets, in chunks of a block
-  int run = 0;
-  for (int t0 = 0; t0 <= nt; t0 += blockDim.x) {
-    const int t = t0 + threadIdx.x;
-    const int n = t < nt ? c.toff[t] : 0;
-    int tot;
-    const int off = run + block_excl_scan(n, c.wsum, tot);
-    if (t <= nt) c.toff[t] = off;
-    if (t < nt) c.cur[t] = off;
-    run += tot;
-  }
-  __syncthreads();
+  counts_to_offsets(c, nt);
   for_each_event(p, c, [&](int col, int kind, unsigned read) {
     if (col < c.c_lo || col >= c.c_hi) return;
     const int q = col - c.c_lo;
@@ -1186,21 +1209,18 @@ __device__ void finish_runs(const Params& p, const Ctx& c,
   }
 }
 
-#ifdef FOCALSV_B2_PHASES
+#ifdef FOCALSV_PHASES
 // A build for testing/kernel_sweep.py --phases: each CTA's thread 0 stamps
-// the card's clock (ns) at the phase boundaries into 8 words a CTA after the
-// staged runs of the scratch (B2 only).  The stamp's barrier is this build's
-// alone.
+// the card's clock (ns) at the phase boundaries into 8 words a CTA at
+// p.stamps, past the scratch that the entry documents.  The stamp's barrier
+// is this build's alone.
 #define PHASE(i) phase_stamp(p, blockIdx.x, i)
 __device__ void phase_stamp(const Params& p, int cta, int i) {
-  if (p.rows) return;
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    reinterpret_cast<unsigned long long*>(
-        p.stage_g + (long long)p.G * kMaxCluster * 6 * (p.Drle + 1))
-        [8LL * cta + i] = t;
+    p.stamps[8LL * cta + i] = t;
   }
 }
 #else
@@ -1324,109 +1344,371 @@ struct DeltaSrc {
 //
 // What bounds it on an H100: operations.  The noisy ONT chunk ('dense', 64,
 // 16384, 16384) at G 16 is 8.4 MB of rows, 2.5 us at 3.35 TB/s; each of the
-// two sweeps decodes and counts 16.8 M (read, column) cells, a few integer
-// operations each, some 0.006 ms for both at 16.75 T int32 operations a
-// second (PERF.md states the count).  This first version is simple: every
-// thread walks every read of its region for each tile it holds.
+// two sweeps decodes and counts 8.7 M (read, column) cells, a few integer
+// operations each, some 0.004 ms for both at 16.75 T int32 operations a
+// second (PERF.md states the count).
 //
-// Design: a cluster of nc CTAs of 512 threads a region (as B2 picks it), CTA
-// r taking the same range [c_lo, c_hi) of each half of the columns, so that
-// the byte holding column i and column i + L/2 of a track is written by one
-// CTA.  Per region:
-//  1. Site sweep.  A thread holds kCols (8) columns of a tile of 4096 and
-//     walks the region's reads.  A read whose blocks miss the warp's 256
-//     columns is skipped by the warp together; otherwise the thread takes
-//     its 8 nibbles with one 8-byte load (8 columns never straddle W/2:
-//     W and every row start are multiples of 128) and counts the six
-//     symbols in registers.  Then B2's het test and strip key; N is no
-//     allele.  A tile's counts depend on no other tile: no carries, no
-//     barrier between tiles.
+// Design: a cluster of nc CTAs of 512 threads a region (1 to 8: the most
+// whose G clusters the card holds at once, see plan), CTA r taking the same
+// range [c_lo, c_hi) of each half of the columns, in whole groups of 64, so
+// that the byte holding column i and column i + L/2 of a track is written by
+// one CTA: equal shares, or where each CTA holds 4 tiles or more, shares of
+// the region's read cover (balance).  The CTA lays its two ranges end to end as one run of 2 (c_hi -
+// c_lo) columns, cut in tiles of 4096: a thread holds 8 columns of a tile,
+// and every thread holds columns wherever the run fills the tile (tiles of
+// each half apart would leave half the threads without columns at L 16384
+// and 4 CTAs a region).  Per region:
+//  0. Reads binned by tile.  Each valid read's qstart is staged in shared
+//     memory; a counting sort (a histogram over the CTA's tiles, a scan, a
+//     scatter) lists, for each tile, the reads whose row meets it (16-bit
+//     read indices, in shared memory where they fit, else in the wrapper's
+//     scratch).  A tile no read meets has an empty list; both sweeps walk
+//     these lists, so a read is visited only by the tiles it meets.
+//  1. Site sweep.  A tile's list is walked in groups of 8 reads.  The row
+//     bytes a group needs come into a ring of 3 stages in shared memory by
+//     16-byte asynchronous copies (cp.async; a 16-column piece of a row
+//     never straddles its W/2 nibble boundary, its ends or a CTA's range, as
+//     all of them are multiples of 16), two groups in flight while one is
+//     counted, one barrier a group.  A stage holds, for each read of its
+//     group, the tile's 4096 byte slots in the thread order, so that a
+//     thread reads its 8 nibbles with one 8-byte load and a warp's loads
+//     meet no bank conflict, and each read's first column and weight,
+//     written with the copies, so that the count of a read waits on one
+//     shared load and not on a chain of them.  The six symbols of a column
+//     are counted in one 32-bit word of 5-bit fields (one shift and one add
+//     a cell), added out to the int counts before a field can pass 31.
+//     Then B2's het test and strip key; N is no allele.
 //  2. The leader, as in B2, from the merge of the cluster's keys on; only
 //     the allele bitplanes are found otherwise: a warp a (site, word of 32
 //     reads) reads each read's nibble at the site's column.
-//  3. Vote sweep: the same walk, each read weighted by its class (1, 65536
-//     or 65537, B2's packed counts), so that one pass counts both tracks;
-//     the first maximum wins, a column is covered where its sum is above 0,
-//     and B2's dense writer writes the tracks.
+//  3. Vote sweep: the same walk over the same lists, each read's fields
+//     added to the hp-1 and hp-2 words as its class says (both for hp 0),
+//     then added out as B2's packed counts (hp 1 the low 16 bits, hp 2 the
+//     high); the first maximum wins, a column is covered where its sum is
+//     above 0, and B2's dense writer writes the tracks.
 // Columns past a row's end or past L are not covered; columns in
 // [ltrue, L) are counted as any other, and only the strips use ltrue.
+// What the card taught (NVIDIA H100 80GB HBM3 at 700 W, kernel_sweep.py
+// --b3-only, PERF.md section 6): clusters of 8 at G 16 do not all fit at
+// once (the card's GPCs hold fewer), and the second wave made a full chunk
+// of L 16384 take 0.085 ms where 6 CTAs a region take 0.047.
 
 constexpr int kNoCov = 255;
+constexpr int kRangeCols = 64;   // a CTA's range of a half: groups of these
+// the ring: stages of a group of reads each (a test build takes others)
+#ifndef FOCALSV_RING_STAGES
+#define FOCALSV_RING_STAGES 3
+#endif
+#ifndef FOCALSV_RING_GROUP
+#define FOCALSV_RING_GROUP 8
+#endif
+constexpr int kGroup = FOCALSV_RING_GROUP;    // reads a stage of the ring
+constexpr int kStages = FOCALSV_RING_STAGES;  // stages of the ring
+static_assert(kStages >= 2 && kGroup >= 1 && kGroup < (1 << 5) - 1,
+              "a ring of 2 stages or more, fields that count a group");
+constexpr int kPiece = 16;       // bytes of an asynchronous copy
+constexpr int kRingBytes = kStages * kGroup * kTile;
+constexpr int kField = 5;        // bits of a symbol's count in a column word
+constexpr int kFieldMax = (1 << kField) - 1;
+static_assert(kRangeCols % kPiece == 0 && kBlock % kPiece == 0,
+              "a piece never straddles a range, a block or W/2");
+
+// Reads a CTA's lists hold at most: each read meets at most W / kTile + 2
+// tiles of each half's range, and no more than the CTA's tiles.
+__host__ __device__ __forceinline__ long long list_cap(int R, int W,
+                                                       int tiles) {
+  return (long long)R * imin(tiles, 2 * (W / kTile + 2));
+}
+
+// The region column of position v of this CTA's run.
+__device__ __forceinline__ int run_col(const Params& p, const Ctx& c, int v) {
+  return v < c.hl ? c.c_lo + v : c.c_lo + p.L / 2 + v - c.hl;
+}
+
+// The tiles of this CTA's run that a row from block q meets: [a0, a1] in
+// the first half's range, [b0, b1] in the second's (empty where the end is
+// below the start), a tile met in both counted once.
+__device__ __forceinline__ void row_tiles(const Params& p, const Ctx& c,
+                                          int q, int& a0, int& a1, int& b0,
+                                          int& b1) {
+  const long long lo = (long long)q * kBlock, hi = lo + p.W;
+  const long long h1 = c.c_lo + p.L / 2;
+  a0 = b0 = 0;
+  a1 = b1 = -1;
+  long long x = lo > c.c_lo ? lo : c.c_lo, y = hi < c.c_hi ? hi : c.c_hi;
+  if (x < y) {
+    a0 = (int)(x - c.c_lo) >> kTileBits;
+    a1 = (int)(y - 1 - c.c_lo) >> kTileBits;
+  }
+  x = lo > h1 ? lo : h1;
+  y = hi < h1 + c.hl ? hi : h1 + c.hl;
+  if (x < y) {
+    b0 = (int)(x - h1 + c.hl) >> kTileBits;
+    b1 = (int)(y - 1 - h1 + c.hl) >> kTileBits;
+  }
+  if (a0 <= a1 && b0 <= b1 && b0 == a1) ++b0;
+}
 
 struct RowsSrc {
   static __device__ void inputs(const Params& p, Ctx& c, int g,
-                                unsigned char*) {
+                                unsigned char* sm) {
     const uint8_t* buf = p.buf;
     c.rows = buf + p.in_off[IN_ROWS] + (long long)g * p.R * (p.W / 2);
     c.qstart = reinterpret_cast<const int*>(buf + p.in_off[IN_QSTART]) +
                (long long)g * p.R;
     c.rv = buf + p.in_off[IN_ROWS_RV] + (long long)g * p.R;
     c.ltrue = reinterpret_cast<const int*>(buf + p.in_off[IN_ROWS_LTRUE])[g];
-    // the same share of each half of the columns, in whole groups of kCols
-    const int groups = p.L / 2 / kCols;
-    c.c_lo = c.rank * groups / p.nc * kCols;
-    c.c_hi = (c.rank + 1) * groups / p.nc * kCols;
-    c.n_tiles = 0;
+    // the same share of each half of the columns, in whole groups
+    const int groups = p.L / 2 / kRangeCols;
+    c.c_lo = c.rank * groups / p.nc * kRangeCols;
+    c.c_hi = (c.rank + 1) * groups / p.nc * kRangeCols;
+    c.hl = c.c_hi - c.c_lo;
+    c.n_tiles = (2 * c.hl + kTile - 1) / kTile;
+    const long long cta = (long long)g * kMaxRowsCluster + c.rank;
+    c.list = p.s_list >= 0 ? reinterpret_cast<uint16_t*>(sm + p.s_list)
+                           : p.list_g + cta * p.list_stride;
+    c.qs = p.s_q >= 0 ? reinterpret_cast<int*>(sm + p.s_q) : nullptr;
+    c.sq = c.qs ? c.qs : c.qstart;
+    c.ring = sm + p.s_dif;            // the union with the leader's planes
+    c.meta = reinterpret_cast<int2*>(sm + p.s_meta);
   }
 
-  // This thread's kCols columns from col0 (a multiple of kCols; `mine`
-  // false past its range): the counts of the six symbols {A, C, G, T, N,
-  // DEL}, each read weighted by weight(r) (0: the read does not count).
-  template <class Wt>
-  static __device__ __forceinline__ void counts(const Params& p,
-                                                const Ctx& c, int col0,
-                                                bool mine, Wt weight,
-                                                int (&cnt)[kCols][6]) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-#pragma unroll
-      for (int s = 0; s < 6; ++s) cnt[j][s] = 0;
-    const int hw = p.W / 2, nb = p.W / kBlock;
-    // the blocks of the warp's 256 columns: the same for every lane
-    const int first = col0 - kCols * (int)(threadIdx.x & 31);
-    const long long blo = first / kBlock;
-    const long long bhi = (first + 32 * kCols - 1) / kBlock;
-    for (int r = 0; r < p.R; ++r) {
-      const int w = weight(r);
-      if (!w) continue;
-      const long long q = c.qstart[r];
-      if (q > bhi || q + nb <= blo) continue;   // the whole warp skips it
-      const long long k = (long long)col0 - q * kBlock;
-      if (!mine || k < 0 || k >= p.W) continue;
+  // Bin the valid reads by the tiles of this CTA's run that their rows
+  // meet; stage qstart.
+  static __device__ void bin_reads(const Params& p, const Ctx& c) {
+    const int nt = c.n_tiles;
+    for (int t = threadIdx.x; t <= nt; t += blockDim.x) c.toff[t] = 0;
+    __syncthreads();
+    for (int r = threadIdx.x; r < p.R; r += blockDim.x) {
+      const int q = c.qstart[r];
+      if (c.qs) c.qs[r] = q;
+      if (!c.rv[r]) continue;
+      int a0, a1, b0, b1;
+      row_tiles(p, c, q, a0, a1, b0, b1);
+      for (int t = a0; t <= a1; ++t) atomicAdd(&c.toff[t], 1);
+      for (int t = b0; t <= b1; ++t) atomicAdd(&c.toff[t], 1);
+    }
+    __syncthreads();
+    counts_to_offsets(c, nt);
+    for (int r = threadIdx.x; r < p.R; r += blockDim.x) {
+      if (!c.rv[r]) continue;
+      int a0, a1, b0, b1;
+      row_tiles(p, c, c.sq[r], a0, a1, b0, b1);
+      for (int t = a0; t <= a1; ++t)
+        c.list[atomicAdd(&c.cur[t], 1)] = (uint16_t)r;
+      for (int t = b0; t <= b1; ++t)
+        c.list[atomicAdd(&c.cur[t], 1)] = (uint16_t)r;
+    }
+    __syncthreads();
+  }
+
+  // Steps of tile t: its groups of kGroup reads, one for an empty list.
+  static __device__ __forceinline__ int steps_of(const Ctx& c, int t) {
+    return imax(1, (c.toff[t + 1] - c.toff[t] + kGroup - 1) / kGroup);
+  }
+
+  // The asynchronous copies of the row bytes of the n reads from list entry
+  // e0 on that tile t needs, into stage ps: read i's bytes for position v of
+  // the tile at i * kTile + v; and each read's first column and weight bits
+  // (its class in the vote, 1 in the site sweep; 0 past the n reads).
+  static __device__ void stage_rows(const Params& p, const Ctx& c, int t,
+                                    int e0, int n, int ps, bool vote) {
+    const int hw = p.W / 2, per = kTile / kPiece;
+    uint8_t* stage = c.ring + ps * (kGroup * kTile);
+    for (int i = threadIdx.x; i < kGroup; i += blockDim.x) {
+      const int r = i < n ? c.list[e0 + i] : 0;
+      // a listed row meets the run: its first column lies in (-W, L)
+      c.meta[ps * kGroup + i] =
+          i < n ? make_int2(c.sq[r] * kBlock, vote ? c.cls[r] : 1)
+                : make_int2(0, 0);
+    }
+    for (int i = threadIdx.x; i < n * per; i += blockDim.x) {
+      const int j = i / per, v = (i - j * per) * kPiece;
+      if (t * kTile + v >= 2 * c.hl) continue;
+      const int r = c.list[e0 + j];
+      const long long k = (long long)run_col(p, c, t * kTile + v) -
+                          (long long)c.sq[r] * kBlock;
+      if (k < 0 || k >= p.W) continue;
       const int kk = (int)k;
-      const bool high = kk >= hw;
-      const unsigned long long v =
-          *reinterpret_cast<const unsigned long long*>(
-              c.rows + (long long)r * hw + (high ? kk - hw : kk)) >>
-          (high ? 4 : 0);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int n = (int)(v >> (8 * j)) & 15;
-#pragma unroll
-        for (int s = 0; s < 6; ++s) cnt[j][s] += n == s ? w : 0;
-      }
+      __pipeline_memcpy_async(stage + j * kTile + v,
+                              c.rows + (long long)r * hw +
+                                  (kk < hw ? kk : kk - hw),
+                              kPiece);
     }
   }
 
-  static __device__ void sites(const Params& p, const Ctx& c) {
-    __syncthreads();                 // the keys are clear
-    const int strip = imax((c.ltrue + p.S - 1) / p.S, 1);
-    for (int h = 0; h < 2; ++h) {
-      const int lo = c.c_lo + h * (p.L / 2), hi = c.c_hi + h * (p.L / 2);
-      for (int t0 = lo; t0 < hi; t0 += kTile) {
-        const int col0 = t0 + threadIdx.x * kCols;
-        int cnt[kCols][6];
-        counts(p, c, col0, col0 < hi,
-               [&](int r) { return c.rv[r] ? 1 : 0; }, cnt);
-        if (col0 >= hi) continue;
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int a[5] = {cnt[j][0], cnt[j][1], cnt[j][2], cnt[j][3],
-                            cnt[j][5]};
-          site_key(p, c, col0 + j, a, strip);
+  // One sweep over this CTA's tiles: each thread's 8 columns counted over
+  // the tile's reads, a read weighted by its class in the vote (Vote) and
+  // by 1 in the site sweep.  cnt[j][s]: the count of symbol s at column j
+  // (packed per haplotype in the vote).  finish(col0, hi, cnt) after each
+  // tile: col0 the thread's first column, hi the end of its range (0 for
+  // a thread past the run).  Every thread calls it.
+  template <bool Vote, class Fin>
+  static __device__ void sweep(const Params& p, const Ctx& c, Fin finish) {
+    int pt = 0, pg = 0, ps = 0;       // the next step to copy, its stage
+    auto issue = [&]() {
+      if (pt < c.n_tiles) {
+        const int e0 = c.toff[pt] + pg * kGroup;
+        stage_rows(p, c, pt, e0, imin(kGroup, c.toff[pt + 1] - e0), ps,
+                   Vote);
+        if (++pg == steps_of(c, pt)) {
+          ++pt;
+          pg = 0;
         }
       }
+      __pipeline_commit();
+      ps = ps + 1 == kStages ? 0 : ps + 1;
+    };
+    for (int s = 0; s < kStages - 1; ++s) issue();
+    const int hw = p.W / 2;
+    int stage = 0;
+    for (int t = 0; t < c.n_tiles; ++t) {
+      const int v0 = t * kTile + threadIdx.x * kCols;
+      const bool mine = v0 < 2 * c.hl;
+      const int col0 = mine ? run_col(p, c, v0) : 0;
+      int cnt[kCols][6];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+#pragma unroll
+        for (int s = 0; s < 6; ++s) cnt[j][s] = 0;
+      uint32_t f1[kCols], f2[kCols];  // 5-bit fields: hp 1 (or all), hp 2
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) f1[j] = f2[j] = 0u;
+      auto add_out = [&]() {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+#pragma unroll
+          for (int s = 0; s < 6; ++s) {
+            const int a = (int)(f1[j] >> (kField * s)) & kFieldMax;
+            cnt[j][s] += Vote ? a + (((int)(f2[j] >> (kField * s)) &
+                                      kFieldMax) << 16)
+                              : a;
+          }
+          f1[j] = f2[j] = 0u;
+        }
+      };
+      int pending = 0;                 // reads in the fields, at most
+      const int nst = steps_of(c, t);
+      for (int gi = 0; gi < nst; ++gi) {
+        __pipeline_wait_prior(kStages - 2);   // this step's copies are in
+        __syncthreads();                      // everyone's; stage free
+        issue();
+        const uint8_t* st = c.ring + stage * (kGroup * kTile) +
+                            threadIdx.x * kCols;
+        const int2* mt = c.meta + stage * kGroup;
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          const int2 m = mt[i];
+          const int k = col0 - m.x;
+          if (!mine || m.y == 0 || k < 0 || k >= p.W) continue;
+          const unsigned b1 = m.y & 1, b2 = (unsigned)m.y >> 1;
+          unsigned long long v =
+              *reinterpret_cast<const unsigned long long*>(st + i * kTile);
+          if (k >= hw) v >>= 4;
+          const uint32_t lo = (uint32_t)v, hi = (uint32_t)(v >> 32);
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+            const uint32_t n4 = ((j < 4 ? lo : hi) >> (8 * (j & 3))) & 15u;
+            // one bit at field n4; codes past 6 (no coverage) shift it out
+            const uint32_t one = __funnelshift_lc(0u, 1u, kField * n4);
+            f1[j] += Vote ? one * b1 : one;
+            if (Vote) f2[j] += one * b2;
+          }
+        }
+        pending += kGroup;
+        if (pending + kGroup > kFieldMax) {
+          add_out();
+          pending = 0;
+        }
+        stage = stage + 1 == kStages ? 0 : stage + 1;
+      }
+      add_out();
+      finish(col0, mine ? (v0 < c.hl ? c.c_hi : c.c_hi + p.L / 2) : 0, cnt);
     }
+    __pipeline_wait_prior(0);          // the empty groups past the last
+  }
+
+  // This CTA's range of groups of kRangeCols columns (the same in both
+  // halves) by the region's read cover, so that the CTAs' sweeps take about
+  // the same time where a region fills its L unevenly: the group pairs'
+  // weights (the reads over a group in either half, plus kColWeight for the
+  // columns' own work) cut into nc runs of about equal sums.  Every CTA
+  // computes the same cuts.  Only where each CTA's equal run holds
+  // kBalanceTiles tiles or more: below that the count costs more than it
+  // saves (PERF.md section 6).  The cover is counted in the ring, which is
+  // free until the sweep; where it does not fit, the ranges stay equal.
+  static __device__ void balance(const Params& p, Ctx& c) {
+    constexpr int kColWeight = 4, kBalanceTiles = 4;
+    const int groups = p.L / 2 / kRangeCols, n = 2 * groups;
+    if (p.nc == 1 || p.L / p.nc < kBalanceTiles * kTile ||
+        (3LL * groups + 3) * 4 > kRingBytes)
+      return;
+    int* cov = reinterpret_cast<int*>(c.ring);   // (n + 1,) then the cover
+    int* ex = cov + n + 1;                       // (groups + 1,) prefix sums
+    for (int i = threadIdx.x; i <= n; i += blockDim.x) cov[i] = 0;
+    __syncthreads();
+    for (int r = threadIdx.x; r < p.R; r += blockDim.x) {
+      if (!c.rv[r]) continue;
+      const long long lo = (long long)c.qstart[r] * kBlock;
+      const long long a = lo > 0 ? lo : 0, b = lo + p.W < p.L ? lo + p.W : p.L;
+      if (a >= b) continue;
+      atomicAdd(&cov[a / kRangeCols], 1);
+      atomicAdd(&cov[(b - 1) / kRangeCols + 1], -1);
+    }
+    __syncthreads();
+    int run = 0, tot;
+    for (int i0 = 0; i0 < n; i0 += blockDim.x) {      // the cover of a group
+      const int i = i0 + threadIdx.x;
+      const int d = i < n ? cov[i] : 0;
+      const int v = run + block_excl_scan(d, c.wsum, tot) + d;
+      if (i < n) cov[i] = v;
+      run += tot;
+    }
+    __syncthreads();
+    run = 0;
+    for (int g0 = 0; g0 <= groups; g0 += blockDim.x) {  // prefix of weights
+      const int g = g0 + threadIdx.x;
+      const int w = g < groups ? cov[g] + cov[g + groups] + kColWeight : 0;
+      const int e = run + block_excl_scan(w, c.wsum, tot);
+      if (g <= groups) ex[g] = e;
+      run += tot;
+    }
+    __syncthreads();
+    // cut k: the group after which the sum first reaches ceil(k T / nc)
+    const long long T = ex[groups];
+    int* cut = ex + groups + 1;                  // this CTA's two cuts
+    for (int g = threadIdx.x; g < groups; g += blockDim.x)
+      for (int k = c.rank; k <= c.rank + 1; ++k) {
+        const long long target = (k * T + p.nc - 1) / p.nc;
+        if (k > 0 && k < p.nc && ex[g] < target && target <= ex[g + 1])
+          cut[k - c.rank] = g + 1;
+      }
+    if (threadIdx.x == 0) {
+      if (c.rank == 0) cut[0] = 0;
+      if (c.rank + 1 == p.nc) cut[1] = groups;
+    }
+    __syncthreads();
+    c.c_lo = cut[0] * kRangeCols;
+    c.c_hi = cut[1] * kRangeCols;
+    c.hl = c.c_hi - c.c_lo;
+    c.n_tiles = (2 * c.hl + kTile - 1) / kTile;
+    __syncthreads();                             // the ring is the sweep's
+  }
+
+  static __device__ void sites(const Params& p, Ctx& c) {
+    balance(p, c);
+    bin_reads(p, c);
+    PHASE(1);
+    const int strip = imax((c.ltrue + p.S - 1) / p.S, 1);
+    sweep<false>(p, c, [&](int col0, int hi, const int (&cnt)[kCols][6]) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        if (col0 + j >= hi) continue;
+        const int a[5] = {cnt[j][0], cnt[j][1], cnt[j][2], cnt[j][3],
+                          cnt[j][5]};
+        site_key(p, c, col0 + j, a, strip);
+      }
+    });
   }
 
   // The allele bitplanes of the n_het selected sites.
@@ -1461,37 +1743,33 @@ struct RowsSrc {
   }
 
   static __device__ void votes(const Params& p, const Ctx& c,
-                               cg::cluster_group&) {
+                               cg::cluster_group& cluster) {
     __syncthreads();                 // every read's class is in
-    for (int h = 0; h < 2; ++h) {
-      const int lo = c.c_lo + h * (p.L / 2), hi = c.c_hi + h * (p.L / 2);
-      for (int t0 = lo; t0 < hi; t0 += kTile) {
-        const int col0 = t0 + threadIdx.x * kCols;
-        int cnt[kCols][6];
-        counts(p, c, col0, col0 < hi,
-               [&](int r) { return class_weight(c, (unsigned)r); }, cnt);
-        // both states (bits 0-7) and both voted symbols (bits 8-15)
-        int cs[kCols];
+    PHASE(4);
+    sweep<true>(p, c, [&](int col0, int hi, const int (&cnt)[kCols][6]) {
+      // both states (bits 0-7) and both voted symbols (bits 8-15)
+      int cs[kCols];
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          int st = 0, syms = 0;
+      for (int j = 0; j < kCols; ++j) {
+        int st = 0, syms = 0;
 #pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            int best = -1, sym = 0, tot = 0;
+        for (int k = 0; k < 2; ++k) {
+          int best = -1, sym = 0, tot = 0;
 #pragma unroll
-            for (int s = 0; s < 6; ++s) {
-              const int v = k ? hi16(cnt[j][s]) : lo16(cnt[j][s]);
-              tot += v;
-              if (v > best) { best = v; sym = s; }
-            }
-            st |= (tot > 0 ? sym : 7) << (kStateBits * k);
-            syms |= sym << (4 * k);
+          for (int s = 0; s < 6; ++s) {
+            const int v = k ? hi16(cnt[j][s]) : lo16(cnt[j][s]);
+            tot += v;
+            if (v > best) { best = v; sym = s; }
           }
-          cs[j] = st | (syms << 8);
+          st |= (tot > 0 ? sym : 7) << (kStateBits * k);
+          syms |= sym << (4 * k);
         }
-        write_dense(p, c, col0, hi, cs);
+        cs[j] = st | (syms << 8);
       }
-    }
+      write_dense(p, c, col0, hi, cs);
+    });
+    PHASE(5);
+    if (p.nc > 1) cluster.sync();    // the leader's hp was read: it may end
   }
 };
 
@@ -1544,6 +1822,7 @@ __global__ void __launch_bounds__(kThreads, 1) region_step_kernel(Params p) {
   if (rank == 0) {
     const int n_het = leader_sites(p, c, cluster);
     Src::alleles(p, c, n_het);
+    PHASE(7);
     phase_reads(p, c, n_het);
   }
   PHASE(3);
@@ -1554,8 +1833,9 @@ __global__ void __launch_bounds__(kThreads, 1) region_step_kernel(Params p) {
 }
 
 // Shared memory of a CTA: the strip keys, the union of B2's difference
-// arrays and (when planes_in_smem) the three planes, B2's events (when
-// events_in_smem), then the fixed arrays.  Offsets of what is not in shared
+// arrays or B3's ring and (when planes_in_smem) the three planes, B2's
+// events or B3's read lists and staged qstart (when events_in_smem), B3's
+// first columns and classes of the ring's reads, then the fixed arrays.  Offsets of what is not in shared
 // memory are -1.  Returns bytes.
 size_t carve(Params& p, bool planes_in_smem, bool events_in_smem) {
   const size_t S = p.S;
@@ -1567,11 +1847,17 @@ size_t carve(Params& p, bool planes_in_smem, bool events_in_smem) {
     return (int)at;
   };
   p.s_keys = take(8 * S, 16);
-  const size_t dif = p.rows ? 0 : 4ull * kRows * kTile;
+  const size_t dif = p.rows ? (size_t)kRingBytes : 4ull * kRows * kTile;
   const size_t planes = 12 * S * (size_t)p.RW;
   p.s_dif = take(planes_in_smem && planes > dif ? planes : dif, 16);
   p.s_planes = planes_in_smem ? p.s_dif : -1;
-  p.s_events = events_in_smem ? take(4 * (size_t)p.E, 16) : -1;
+  const bool lists = p.rows && events_in_smem;
+  p.s_events = !p.rows && events_in_smem ? take(4 * (size_t)p.E, 16) : -1;
+  p.s_list = lists ? take(2 * (size_t)list_cap(p.R, p.W, p.tiles_per_cta),
+                          16)
+                   : -1;
+  p.s_q = lists ? take(4 * (size_t)p.R, 16) : -1;
+  p.s_meta = p.rows ? take(8 * (size_t)(kStages * kGroup), 16) : -1;
   p.s_toff = take(4 * (size_t)(p.tiles_per_cta + 1), 4);
   p.s_cur = take(4 * (size_t)p.tiles_per_cta, 4);
   p.s_wsum = take(4 * 33, 16);
@@ -1591,6 +1877,12 @@ size_t carve(Params& p, bool planes_in_smem, bool events_in_smem) {
   p.s_hp = take(p.R, 1);
   p.s_cls = take(p.R, 1);
   return (off + 15) / 16 * 16;
+}
+
+// The phase stamps of kernel_sweep's build: past the first n words of the
+// scratch, on an 8-byte boundary.
+unsigned long long* stamps_past(uint32_t* words, long long n) {
+  return reinterpret_cast<unsigned long long*>(words + (n + 1) / 2 * 2);
 }
 
 int device_attr(cudaDeviceAttr attr) {
@@ -1661,12 +1953,13 @@ void set_knobs(Params& p, int mec_iters, int min_site_depth,
   p.purify_den = purify_den;
 }
 
-// Whether a cluster of nc CTAs with this launch's shared memory can be
-// placed on the current card, asked once a (card, nc, bytes) and kernel.
+// How many clusters of nc CTAs with this launch's shared memory the current
+// card holds at once (0: none can be placed), asked once a (card, nc, bytes)
+// and kernel.
 template <class Src>
-bool cluster_fits(const cudaLaunchConfig_t& cfg, int nc) {
+int active_clusters(const cudaLaunchConfig_t& cfg, int nc) {
   static std::mutex lock;
-  static std::map<std::tuple<int, int, size_t>, bool> known;
+  static std::map<std::tuple<int, int, size_t>, int> known;
   int dev = 0;
   cudaGetDevice(&dev);
   const auto key = std::make_tuple(dev, nc, cfg.dynamicSmemBytes);
@@ -1674,13 +1967,12 @@ bool cluster_fits(const cudaLaunchConfig_t& cfg, int nc) {
   const auto it = known.find(key);
   if (it != known.end()) return it->second;
   int active = 0;
-  const bool fits = cudaOccupancyMaxActiveClusters(
-                        &active, region_step_kernel<Src>, &cfg) ==
-                        cudaSuccess &&
-                    active > 0;
+  if (cudaOccupancyMaxActiveClusters(&active, region_step_kernel<Src>,
+                                     &cfg) != cudaSuccess)
+    active = 0;
   cudaGetLastError();
-  known[key] = fits;
-  return fits;
+  known[key] = active;
+  return active;
 }
 
 // The launch of a chunk: CTAs a region, shared memory and what lives there,
@@ -1689,16 +1981,23 @@ bool cluster_fits(const cudaLaunchConfig_t& cfg, int nc) {
 // with a tile or more a CTA and G * nc within the SMs, or past them (a
 // second wave) where each CTA keeps 8 tiles or more, unless `cluster` names
 // one.  On an H100 that is 2 at phase 4's delta chunks of G 64 and 4 at its
-// G 51, L 131072 (PERF.md section 6).  B2's dense tracks are written by one
-// CTA; B3's CTAs take a share of each half of the columns, so a cluster
-// that `cluster` names is taken even where a CTA holds less than a tile.  A
-// cluster that cannot be placed is halved.
+// G 51, L 131072 (PERF.md section 6).  B3 takes the most CTAs, up to 8
+// (the portable cluster size), with a run of half a tile or more each, of
+// which the card holds all G clusters at once (a second wave would repeat
+// the leader's phasing): 8 where they fit, one fewer each time they do not
+// (PERF.md section 6 names what an H100 takes at phase 6b's G 16).  B2's
+// dense tracks are written by one CTA; B3's CTAs take a share of each half
+// of the columns, so a cluster that `cluster` names is taken even where a
+// CTA holds less than a tile.  A cluster that cannot be placed is halved.
 template <class Src>
 int plan(Params& p, int cluster, cudaLaunchConfig_t& cfg,
          cudaLaunchAttribute* attr, cudaStream_t stream) {
   const int n_tiles = (p.L + kTile - 1) / kTile;
   int nc = cluster;
-  if (nc == 0) {
+  const bool pick_rows = p.rows && cluster == 0;
+  if (pick_rows) {
+    nc = imax(1, imin(kMaxRowsCluster, p.L / (kTile / 2)));
+  } else if (nc == 0) {
     const int sms = device_attr(cudaDevAttrMultiProcessorCount);
     nc = 1;
     while (nc < kMaxCluster && nc * 2 <= n_tiles &&
@@ -1711,7 +2010,9 @@ int plan(Params& p, int cluster, cudaLaunchConfig_t& cfg,
       (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   for (;;) {
     p.nc = nc;
-    p.tiles_per_cta = p.rows ? 0 : (n_tiles + nc - 1) / nc;
+    // B3: a CTA's run of its two ranges, at most (balance may give one
+    // CTA all the columns)
+    p.tiles_per_cta = p.rows ? n_tiles : (n_tiles + nc - 1) / nc;
     size_t smem = 0;
     bool fits = false;
     for (int k = 0; k < 4 && !fits; ++k) {
@@ -1733,13 +2034,16 @@ int plan(Params& p, int cluster, cudaLaunchConfig_t& cfg,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    if (nc == 1 || cluster_fits<Src>(cfg, nc)) return 0;
-    nc /= 2;
+    if (nc == 1) return 0;
+    const int active = active_clusters<Src>(cfg, nc);
+    if (active > 0 && !(pick_rows && active < p.G)) return 0;
+    nc = pick_rows ? nc - 1 : nc / 2;
   }
 }
 
 // plan_out (see the entries): CTAs a region, dynamic shared memory bytes a
-// CTA, planes in shared memory (0, 1), events in shared memory (0, 1), the
+// CTA, planes in shared memory (0, 1), events (B3: read lists and qstart)
+// in shared memory (0, 1), the
 // kernel's registers a thread and its local memory (spills) in bytes.
 template <class Src>
 int plan_of(Params& p, int cluster, int* plan_out) {
@@ -1750,7 +2054,7 @@ int plan_of(Params& p, int cluster, int* plan_out) {
   plan_out[0] = p.nc;
   plan_out[1] = (int)cfg.dynamicSmemBytes;
   plan_out[2] = p.s_planes >= 0;
-  plan_out[3] = p.s_events >= 0;
+  plan_out[3] = (p.rows ? p.s_list : p.s_events) >= 0;
   cudaFuncAttributes attrs;
   err = (int)cudaFuncGetAttributes(&attrs, region_step_kernel<Src>);
   plan_out[4] = attrs.numRegs;
@@ -1810,22 +2114,34 @@ extern "C" int focalsv_region_step(
   p.events_g = words + (long long)G * 3 * S * p.RW;
   p.stage_g = reinterpret_cast<int32_t*>(p.events_g + (long long)G *
                                                           kMaxCluster * p.E);
+  p.stamps = stamps_past(words, (long long)G * (3LL * S * p.RW +
+                                               kMaxCluster * (p.E + 6LL *
+                                                              (Drle + 1))));
   return launch<DeltaSrc>(p, cluster, stream);
 }
 
-// B3's launch of a dense chunk, as focalsv_region_step_plan says it.
+// Entries of a CTA's read lists in B3's scratch, whatever its cluster: the
+// lists of one CTA a region, an even count.
+static long long rows_list_stride(int R, int L, int W) {
+  return (list_cap(R, W, (L + kTile - 1) / kTile) + 1) / 2 * 2;
+}
+
+// B3's launch of a dense chunk, as focalsv_region_step_plan says it (plan_out
+// 3: the read lists and qstart in shared memory).
 extern "C" int focalsv_region_rows_plan(int G, int R, int L, int W, int S,
                                         int cluster, int* plan_out) {
   Params p = {};
-  if (G < 1 || cluster < 0 || cluster > kMaxCluster)
+  if (G < 1 || cluster < 0 || cluster > kMaxRowsCluster)
     return (int)cudaErrorInvalidValue;
   const int err = init_rows_params(p, G, R, L, W, S);
   return err ? err : plan_of<RowsSrc>(p, cluster, plan_out);
 }
 
-// B3, kernel of a dense chunk (wire.rows_flat_layout).  The wrapper's
-// scratch holds 3 * S * ceil(R / 32) words of planes a region, used where
-// they do not fit in shared memory.
+// B3, kernel of a dense chunk (wire.rows_flat_layout).  cluster: CTAs a
+// region (1 to 8); 0 lets plan choose.  The wrapper's scratch holds 3
+// * S * ceil(R / 32) words of planes a region, then kMaxRowsCluster times
+// rows_list_stride(R, L, W) / 2 words of read lists a region, each used
+// where it does not fit in shared memory.
 extern "C" int focalsv_region_rows(
     const void* buf, void* out, void* scratch, int G, int R, int L, int W,
     int S, int mec_iters, int min_site_depth, int min_minor_count,
@@ -1833,7 +2149,8 @@ extern "C" int focalsv_region_rows(
     int purify_min_pairs, int purify_num, int purify_den, int cluster,
     void* stream) {
   if (G <= 0) return 0;
-  if (cluster < 0 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  if (cluster < 0 || cluster > kMaxRowsCluster)
+    return (int)cudaErrorInvalidValue;
   Params p = {};
   const int err = init_rows_params(p, G, R, L, W, S);
   if (err) return err;
@@ -1842,6 +2159,12 @@ extern "C" int focalsv_region_rows(
   set_knobs(p, mec_iters, min_site_depth, min_minor_count, lo_num, lo_den,
             hi_num, hi_den, purify_window, purify_min_pairs, purify_num,
             purify_den);
-  p.planes_g = static_cast<uint32_t*>(scratch);
+  uint32_t* words = static_cast<uint32_t*>(scratch);
+  const long long planes = (long long)G * 3 * S * p.RW;
+  p.planes_g = words;
+  p.list_g = reinterpret_cast<uint16_t*>(words + planes);
+  p.list_stride = rows_list_stride(R, L, W);
+  p.stamps = stamps_past(words, planes + (long long)G * kMaxRowsCluster *
+                                             p.list_stride / 2);
   return launch<RowsSrc>(p, cluster, stream);
 }

@@ -30,11 +30,13 @@ _lock = threading.Lock()
 _fns: dict = {}
 launches = 0             # launches of kernel B2
 rows_launches = 0        # launches of kernel B3
-# CTAs a region (a thread-block cluster of 1, 2 or 4); 0 lets the kernel
-# choose from the chunk's size and the card's SM count.  kernel_sweep and the
-# card tests set it to run each size.
+# CTAs a region (a thread-block cluster of 1, 2 or 4 for B2, 1 to 8 for
+# B3); 0 lets the kernel choose from the chunk's size and the card's SM
+# count.  kernel_sweep and the card tests set it to run each size.
 CLUSTER = 0
-MAX_CLUSTER = 4          # the kernel's kMaxCluster
+MAX_CLUSTER = 4          # B2's kMaxCluster
+MAX_ROWS_CLUSTER = 8     # B3's kMaxRowsCluster
+ROWS_CLUSTERS = (1, 2, 4, 6, 8)   # the cluster sizes the sweeps and tests run
 MAX_READS = 32767        # the kernel's kMaxReads: a count fits 16 bits
 
 _SIGNATURES = {
@@ -69,6 +71,7 @@ def reset_launches() -> None:
 
 
 def _plan_dict(plan) -> dict:
+    # events_in_smem: B2's events, or B3's read lists and staged qstart
     return dict(cluster=plan[0], smem_bytes=plan[1],
                 planes_in_smem=bool(plan[2]), events_in_smem=bool(plan[3]),
                 registers=plan[4], local_bytes=plan[5])
@@ -114,6 +117,18 @@ def scratch_words(G: int, R: int, Ds: int, Dd: int, Drle: int,
     events = 2 * R + 2 * Dd + Ds
     return G * (3 * S * -(-R // 32)
                 + MAX_CLUSTER * (events + 6 * (Drle + 1)))
+
+
+TILE = 4096               # the kernels' columns a tile
+
+
+def rows_scratch_words(G: int, R: int, L: int, W: int, S: int) -> int:
+    """int32 words of B3's scratch, per region: the three bitplanes, then
+    for each CTA of the largest cluster (8) its read lists (16-bit, at most R
+    times the tiles a read can meet, an even count), each used where it does
+    not fit in a CTA's shared memory (the kernel's rows_list_stride)."""
+    lists = R * min(-(-L // TILE), 2 * (W // TILE + 2))
+    return G * (3 * S * -(-R // 32) + MAX_ROWS_CLUSTER * -(-lists // 2))
 
 
 def phase_consensus_delta_flat_cuda(
@@ -206,10 +221,10 @@ def phase_consensus_rows_flat_cuda(
     if buf.numel() != lay["__total__"][1]:
         raise ValueError(f"buf holds {buf.numel()} bytes, the layout of "
                          f"G={G} R={R} W={W} {lay['__total__'][1]}")
-    # the rows are read 8 bytes at a time
-    if (buf.data_ptr() % 8 or lay["qstart"][0] % 4
+    # the rows are copied 16 bytes at a time
+    if (buf.data_ptr() % 16 or lay["qstart"][0] % 4
             or lay["ltrue"][0] % 4):
-        raise ValueError("the rows of buf must be 8-byte aligned and its "
+        raise ValueError("the rows of buf must be 16-byte aligned and its "
                          "int32 sections 4-byte aligned")
     nbytes = flat_layout(R, L, S)["__total__"][1]
     if device.type != "cuda":
@@ -222,9 +237,8 @@ def phase_consensus_rows_flat_cuda(
                  purify_min_pairs=purify_min_pairs, purify_num=purify_num,
                  purify_den=purify_den)
     out = torch.empty((G, nbytes), dtype=torch.uint8, device=device)
-    # B3 uses the planes of B2's scratch layout alone
-    scratch = torch.empty(scratch_words(G, R, 0, 0, 0, S), dtype=torch.int32,
-                          device=device)
+    scratch = torch.empty(rows_scratch_words(G, R, L, W, S),
+                          dtype=torch.int32, device=device)
     step = _kernel("focalsv_region_rows")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

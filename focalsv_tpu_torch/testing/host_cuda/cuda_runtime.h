@@ -148,6 +148,10 @@ inline unsigned __ballot_sync(unsigned, int p) {
 }
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned s) {
+  const unsigned long long x = ((unsigned long long)hi << 32) | lo;
+  return (unsigned)((x << (s < 32 ? s : 32)) >> 32);
+}
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 

@@ -20,6 +20,7 @@ the sources; nothing is built when the module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,6 +32,8 @@ import numpy as np
 
 from focalsv_tpu_torch.ops import _build
 from focalsv_tpu_torch.ops.region_cuda import (KNOBS, MAX_CLUSTER,
+                                               MAX_ROWS_CLUSTER,
+                                               rows_scratch_words,
                                                scratch_words)
 from focalsv_tpu_torch.parallel.wire import flat_layout, flat_layout_rle
 
@@ -40,15 +43,16 @@ FLAGS = ("-std=c++20", "-O2", "-fPIC", "-shared", "-fno-extern-tls-init",
          "-x", "c++")
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
-def _library():
-    global _lib
+def _library(defines: tuple = ()):
+    """The source built with these -D definitions (a library each)."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(" ".join(FLAGS).encode())
+        if defines in _libs:
+            return _libs[defines]
+        flags = FLAGS + tuple(f"-D{d}" for d in defines)
+        digest = hashlib.sha256(" ".join(flags).encode())
         for f in [SOURCE, *sorted(HEADERS.glob("*.h"))]:
             digest.update(f.read_bytes())
         out = _build.BUILD_DIR / "host"
@@ -56,7 +60,7 @@ def _library():
         if not so.exists():
             out.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            subprocess.run(["g++", *FLAGS, f"-I{HEADERS}", str(SOURCE), "-o",
+            subprocess.run(["g++", *flags, f"-I{HEADERS}", str(SOURCE), "-o",
                             str(tmp), "-lpthread"], check=True,
                            capture_output=True, text=True)
             os.replace(tmp, so)
@@ -67,7 +71,10 @@ def _library():
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        _lib = lib
+        lib.focalsv_region_rows_plan.argtypes = ([ctypes.c_int] * 6
+                                                 + [ctypes.c_void_p])
+        lib.focalsv_region_rows_plan.restype = ctypes.c_int
+        _libs[defines] = lib
         return lib
 
 
@@ -98,21 +105,58 @@ def region_step(buf: np.ndarray, *, G: int, R: int, L: int, Ds: int,
 
 
 def region_rows(buf: np.ndarray, *, G: int, R: int, L: int, W: int,
-                max_sites: int, cluster: int = 0, **knobs) -> np.ndarray:
+                max_sites: int, cluster: int = 0, smem_bytes: int = 232448,
+                ring: tuple | None = None, **knobs) -> np.ndarray:
     """B3's (G, bytes) result of one dense chunk buffer
     (``wire.rows_flat_layout``), run on the CPU; ``cluster`` as in
     region_step, ``knobs`` the step's other arguments (every one of
-    region_cuda.KNOBS).  Raises where the kernel refuses the chunk."""
-    if not 0 <= cluster <= MAX_CLUSTER:
+    region_cuda.KNOBS).  ``smem_bytes``: the shared memory a CTA may take
+    (the card's 232,448 by default; less moves the planes, then the read
+    lists, to the scratch); ``ring``: (stages, reads a stage) of a build
+    with another ring.  Raises where the kernel refuses the chunk."""
+    if not 0 <= cluster <= MAX_ROWS_CLUSTER:
         raise ValueError(f"cluster={cluster}")
+    lib = _library(() if ring is None else
+                   (f"FOCALSV_RING_STAGES={ring[0]}",
+                    f"FOCALSV_RING_GROUP={ring[1]}"))
     S = max_sites
     out = np.full((G, flat_layout(R, L, S)["__total__"][1]), 0x5A, np.uint8)
-    scratch = np.full(scratch_words(G, R, 0, 0, 0, S), -1, np.int32)
+    scratch = np.full(rows_scratch_words(G, R, L, W, S), -1, np.int32)
     buf = np.ascontiguousarray(buf, np.uint8)
-    err = _library().focalsv_region_rows(
-        buf.ctypes.data, out.ctypes.data, scratch.ctypes.data, G, R, L, W, S,
-        *(knobs[k] for k in KNOBS), cluster, None)
+    with _smem(lib, smem_bytes):
+        err = lib.focalsv_region_rows(
+            buf.ctypes.data, out.ctypes.data, scratch.ctypes.data, G, R, L,
+            W, S, *(knobs[k] for k in KNOBS), cluster, None)
     if err != 0:
         raise RuntimeError(f"the dense region step refused the chunk: error "
                            f"{err}")
     return out
+
+
+@contextlib.contextmanager
+def _smem(lib, smem_bytes: int):
+    """The stand-in card's shared memory a CTA, for one call."""
+    limit = ctypes.c_int.in_dll(lib, "emu_smem_optin")
+    with _lock:
+        before, limit.value = limit.value, smem_bytes
+        try:
+            yield
+        finally:
+            limit.value = before
+
+
+def rows_plan(*, G: int, R: int, L: int, W: int, max_sites: int,
+              cluster: int = 0, smem_bytes: int = 232448, **_) -> dict:
+    """B3's launch plan of a dense chunk on the stand-in card (with
+    ``smem_bytes`` of shared memory a CTA): CTAs a region, shared memory a
+    CTA, the planes and the read lists in shared memory."""
+    lib = _library()
+    plan = (ctypes.c_int * 6)()
+    with _smem(lib, smem_bytes):
+        err = lib.focalsv_region_rows_plan(G, R, L, W, max_sites, cluster,
+                                           plan)
+    if err != 0:
+        raise RuntimeError(f"the dense region step refused the chunk: error "
+                           f"{err}")
+    return dict(cluster=plan[0], smem_bytes=plan[1],
+                planes_in_smem=bool(plan[2]), lists_in_smem=bool(plan[3]))

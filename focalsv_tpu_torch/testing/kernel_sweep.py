@@ -1,8 +1,10 @@
-"""Times kernel B1's launch configurations and kernels B4 and B2 on one
-NVIDIA GPU.
+"""Times kernel B1's launch configurations and kernels B4, B2 and B3 on
+one NVIDIA GPU.
 
     python -m focalsv_tpu_torch.testing.kernel_sweep [--full] [--b4-only]
     python -m focalsv_tpu_torch.testing.kernel_sweep --b2-only [--against DIR]
+        [--phases]
+    python -m focalsv_tpu_torch.testing.kernel_sweep --b3-only [--against DIR]
         [--phases]
 
 Builds the kernels, prints what ptxas reports (registers, spills, shared
@@ -29,7 +31,18 @@ cluster argument) and this checkout's, and calls both through the same bare
 entry (no wrapper: its checks and launch plan cost host time at every
 launch), timed in turns (this, other, other, this) and held against each
 other byte for byte.  ``--phases`` adds B2's time by phase at
-those chunks, from a build that stamps the card's clock at each boundary.  Needs a CUDA device; exits 1 without one.
+those chunks, from a build that stamps the card's clock at each boundary
+(-DFOCALSV_PHASES).
+
+``--b3-only`` does the same for B3 at chip_smoke.py's phase 6b chunks (8
+noisy regions, one or two a chunk; testing/region_cases.py::
+pipeline_rows_chunks), at a full chunk of the smallest and of the largest
+noisy bucket (full_rows_chunk) and on every dense case, with 1, 2 and 4 CTAs
+a region (region_cuda.ROWS_CLUSTERS); ``--phases`` adds its time by phase at
+the noisy chunks, over the CTAs of their real regions: the reads binned by
+tile, the site sweep, the leader (sites, alleles, phasing), the reads'
+classes and the vote sweep.  Both flags together run both.  Needs a CUDA
+device; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -54,9 +67,14 @@ from focalsv_tpu_torch.testing.dp_cases import (ALIGNER_SCORING, OLC_SCORING,
 
 
 def time_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over reps calls on the card (CUDA events),
+    queued behind a sleep of the stream so that the card runs them back to
+    back: the card's time, not the host's time to issue a call."""
     fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -122,44 +140,58 @@ def b4_case(name, dirs, q_len, t_len, d_lo, W, Lq, n_plain, batches,
     return same and host
 
 
-def other_region_step(tree: str):
+def tree_library(tree: str, phases: bool = False) -> ctypes.CDLL:
+    """A checkout's csrc/region_step.cu (this one or another) built into a
+    library of its own (with its phase stamps where ``phases``: each CTA's
+    thread 0 reads the card's clock at the phase boundaries), ptxas's
+    registers and spills printed at the first build."""
+    src = Path(tree) / "focalsv_tpu_torch" / "csrc" / "region_step.cu"
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    kind = "phases" if phases else "bare"
+    so = _build.BUILD_DIR / f"libfocalsv_region_{kind}_{tag}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not so.exists():
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                              *(["-DFOCALSV_PHASES"] if phases else []),
+                              "-shared", "-o", str(so), str(src)],
+                             capture_output=True, text=True)
+        for line in (res.stdout + res.stderr).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {tree} ({kind}): {line.strip()}", flush=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+    return ctypes.CDLL(str(so))
+
+
+def other_region_step(tree: str, phases: bool = False):
     """B2 of a checkout (this one or another), built from its
     csrc/region_step.cu, as a function of a chunk buffer and the step's
     arguments, with no wrapper around the entry.  An entry that
     takes a cluster argument gets 0, the kernel's own choice, and the
-    scratch of this checkout's scratch_words; one without it, the older
-    layout, its planes alone."""
+    scratch of this checkout's scratch_words (with room for the phase
+    stamps); one without it, the older layout, its planes alone."""
+    from focalsv_tpu_torch.ops.region_cuda import MAX_CLUSTER, scratch_words
     from focalsv_tpu_torch.parallel.wire import flat_layout, flat_layout_rle
     src = Path(tree) / "focalsv_tpu_torch" / "csrc" / "region_step.cu"
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = _build.BUILD_DIR / f"libfocalsv_b2_against_{tag}.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    if not so.exists():
-        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                              "-o", str(so), str(src)], capture_output=True,
-                             text=True)
-        for line in (res.stdout + res.stderr).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[b2] {tree}: {line.strip()}", flush=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
-    from focalsv_tpu_torch.ops.region_cuda import scratch_words
     with_cluster = "int cluster, void* stream" in src.read_text()
-    fn = ctypes.CDLL(str(so)).focalsv_region_step
+    fn = tree_library(tree, phases).focalsv_region_step
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (
         19 if with_cluster else 18) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def step(buf, *, G, R, L, Ds, Dd, Drle, max_sites, mec_iters,
              min_site_depth, min_minor_count, lo_num, lo_den, hi_num, hi_den,
-             purify_window, purify_min_pairs, purify_num, purify_den):
+             purify_window, purify_min_pairs, purify_num, purify_den,
+             scratch=None):
         S = max_sites
         lay = flat_layout_rle(R, S, Drle) if Drle else flat_layout(R, L, S)
         out = torch.empty((G, lay["__total__"][1]), dtype=torch.uint8,
                           device=buf.device)
         words = (scratch_words(G, R, Ds, Dd, Drle, S) if with_cluster
                  else G * 3 * S * -(-R // 32))
-        scratch = torch.empty(words, dtype=torch.int32, device=buf.device)
+        if scratch is None:
+            scratch = torch.empty(words + 2 + G * MAX_CLUSTER * 16,
+                                  dtype=torch.int32, device=buf.device)
         err = fn(buf.data_ptr(), out.data_ptr(), scratch.data_ptr(), G, R, L,
                  Ds, Dd, Drle, S, mec_iters, min_site_depth, min_minor_count,
                  lo_num, lo_den, hi_num, hi_den, purify_window,
@@ -167,72 +199,200 @@ def other_region_step(tree: str):
                  *((0,) if with_cluster else ()),
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(f"the other B2 failed: CUDA error {err}")
+            raise RuntimeError(f"the B2 of {tree} failed: CUDA error {err}")
         return out
     return step
 
 
+def other_region_rows(tree: str, phases: bool = False):
+    """B3 of a checkout, as other_region_step gives B2: the bare entry with
+    the scratch of this checkout's rows_scratch_words (a superset of what
+    an older B3 takes) and room for the phase stamps."""
+    from focalsv_tpu_torch.ops.region_cuda import (KNOBS, MAX_ROWS_CLUSTER,
+                                                   rows_scratch_words)
+    from focalsv_tpu_torch.parallel.wire import flat_layout
+    fn = tree_library(tree, phases).focalsv_region_rows
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def step(buf, *, G, R, L, W, max_sites, scratch=None, **knobs):
+        S = max_sites
+        out = torch.empty((G, flat_layout(R, L, S)["__total__"][1]),
+                          dtype=torch.uint8, device=buf.device)
+        if scratch is None:
+            scratch = torch.empty(rows_scratch_words(G, R, L, W, S) + 2
+                                  + G * MAX_ROWS_CLUSTER * 16,
+                                  dtype=torch.int32, device=buf.device)
+        err = fn(buf.data_ptr(), out.data_ptr(), scratch.data_ptr(), G, R, L,
+                 W, S, *(knobs[k] for k in KNOBS), 0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the B3 of {tree} failed: CUDA error {err}")
+        return out
+    return step
+
+
+HERE = str(Path(__file__).resolve().parents[2])
+
+
+def phase_split(scratch, words: int, G: int, nc: int, names, real: int):
+    """The medians over a chunk's CTAs of each phase's time in us, from the
+    stamps past the first ``words`` words of the scratch (the leader's alone
+    for the third phase, the leader's work while the others wait, and for
+    the part of it before the phasing: the merged sites and the allele
+    matrix); only the CTAs of the first ``real`` regions count.  Also the
+    chunk's span from the first stamp to the last, in us."""
+    off = (words + 1) // 2 * 2
+    t = scratch[off:].view(torch.int64)[:G * nc * 8].reshape(
+        G * nc, 8)[:, :7].cpu().numpy().astype(np.float64)
+    d = np.diff(t, axis=1) / 1e3
+    cta = np.arange(G * nc)
+    mine = cta // nc < real
+    leader = mine & (cta % nc == 0)
+    med = [float(np.median(d[leader if i == 2 else mine, i]))
+           for i in range(len(names))]
+    span = (t[:, 6].max() - t[:, 0].min()) / 1e3
+    # the leader's stamp 7, after its sites and allele matrix
+    t7 = scratch[off:].view(torch.int64)[:G * nc * 8].reshape(
+        G * nc, 8)[:, 7].cpu().numpy().astype(np.float64)
+    alleles = float(np.median((t7 - t[:, 2])[leader])) / 1e3
+    return " ".join(f"{n}_us={v:.2f}" for n, v in zip(names, med)) + (
+        f" of_which_sites_and_alleles_us={alleles:.2f} span_us={span:.2f}")
+
+
 PHASES = ("bin", "sites", "middle", "carries", "votes", "runs")
+B3_PHASES = ("bin", "sites", "leader", "classes", "votes", "tail")
 
 
 def b2_phases() -> None:
-    """B2 built with its phase stamps (-DFOCALSV_B2_PHASES; each CTA's
-    thread 0 reads the card's clock at the phase boundaries): at each of
-    phase 4's delta chunks, the median over the chunk's CTAs of each phase's
-    time in us (the leader's alone for the middle section: compaction,
-    alleles, purification, MEC, reads and sites; a CTA past the leader
-    waits through it in `carries`), and the chunk's span from the first
-    stamp to the last."""
+    """B2 built with its phase stamps at each of phase 4's delta chunks:
+    the median over the chunk's CTAs of each phase's time in us (the
+    leader's alone for the middle section: compaction, alleles,
+    purification, MEC, reads and sites; a CTA past the leader waits through
+    it in `carries`), and the chunk's span from the first stamp to the
+    last."""
     from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.parallel import region_step as rs
-    from focalsv_tpu_torch.parallel.wire import flat_layout, flat_layout_rle
     from focalsv_tpu_torch.testing import region_cases
-    src = _build.CSRC / "region_step.cu"
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = _build.BUILD_DIR / f"libfocalsv_b2_phases_{tag}.so"
-    if not so.exists():
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
-                        "-DFOCALSV_B2_PHASES", "-shared", "-o", str(so),
-                        str(src)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(so)).focalsv_region_step
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 19 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    step = other_region_step(HERE, phases=True)
     for key, buf, args in region_cases.pipeline_delta_chunks():
         kw = {**rs.STEP_DEFAULTS, **args}
-        G, R, L, S, D = (kw[k] for k in ("G", "R", "L", "max_sites", "Drle"))
+        G, R, S, D = (kw[k] for k in ("G", "R", "max_sites", "Drle"))
         shape = {k: kw[k] for k in ("G", "R", "L", "Ds", "Dd", "Drle")}
         nc = region_cuda.launch_plan(**shape, S=S)["cluster"]
         dev = torch.from_numpy(buf).to("cuda")
-        lay = flat_layout_rle(R, S, D) if D else flat_layout(R, L, S)
-        out = torch.empty((G, lay["__total__"][1]), dtype=torch.uint8,
-                          device="cuda")
         words = region_cuda.scratch_words(G, R, kw["Ds"], kw["Dd"], D, S)
-        scratch = torch.zeros(words + G * region_cuda.MAX_CLUSTER * 16,
+        scratch = torch.zeros(words + 2 + G * region_cuda.MAX_CLUSTER * 16,
                               dtype=torch.int32, device="cuda")
         for _ in range(3):
-            err = fn(dev.data_ptr(), out.data_ptr(), scratch.data_ptr(), G,
-                     R, L, kw["Ds"], kw["Dd"], D, S, kw["mec_iters"],
-                     kw["min_site_depth"], kw["min_minor_count"],
-                     kw["lo_num"], kw["lo_den"], kw["hi_num"], kw["hi_den"],
-                     kw["purify_window"], kw["purify_min_pairs"],
-                     kw["purify_num"], kw["purify_den"], 0,
-                     torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"B2 with its phase stamps failed: {err}")
+            out = step(dev, **kw, scratch=scratch)
         torch.cuda.synchronize()
         same = torch.equal(out, rs.phase_consensus_delta_flat_plain(dev,
                                                                     **kw))
-        t = scratch[words:].view(torch.int64)[:G * nc * 8].reshape(
-            G * nc, 8)[:, :7].cpu().numpy().astype(np.float64)
-        d = np.diff(t, axis=1) / 1e3
-        leader = np.arange(G * nc) % nc == 0
-        med = [float(np.median(d[leader if i == 2 else slice(None), i]))
-               for i in range(len(PHASES))]
-        span = (t[:, 6].max() - t[:, 0].min()) / 1e3
         print(f"[b2 phases] {key} G={G} cluster={nc} equals_plain={same} "
-              + " ".join(f"{n}_us={v:.2f}" for n, v in zip(PHASES, med))
-              + f" span_us={span:.2f}", flush=True)
+              + phase_split(scratch, words, G, nc, PHASES, G), flush=True)
+
+
+def rows_chunks():
+    """B3's chunks: phase 6b's noisy chunks, a full chunk of each of
+    FULL_ROWS_KEYS, then every dense case: [(name, real regions or None,
+    buf, args)]."""
+    from focalsv_tpu_torch.testing import region_cases as rc
+    out = [(f"noisy {key} real={n}", n, buf, args)
+           for key, n, buf, args in rc.pipeline_rows_chunks()]
+    for key in rc.FULL_ROWS_KEYS:
+        key, n, buf, args = rc.full_rows_chunk(key)
+        out.append((f"noisy full {key} real={n}", n, buf, args))
+    return out + [(name, None, *rc.build_rows(name))
+                  for name in sorted(rc.ROWS_CASES)]
+
+
+def b3_phases(chunks) -> None:
+    """B3 built with its phase stamps at the noisy chunks: the median over
+    the CTAs of the chunk's real regions of each phase's time in us (bin:
+    the reads binned by tile; sites: the site sweep; leader: the leader's
+    sites, alleles and phasing, while the others wait; classes: the reads'
+    classes; votes: the vote sweep and the tracks), and the span."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
+    step = other_region_rows(HERE, phases=True)
+    for name, n_real, buf, args in chunks:
+        if n_real is None:
+            continue
+        kw = {**rs.STEP_DEFAULTS, **args}
+        G, R, L, W, S = (kw[k] for k in ("G", "R", "L", "W", "max_sites"))
+        plan = region_cuda.rows_launch_plan(G, R, L, W, S)
+        nc = plan["cluster"]
+        dev = torch.from_numpy(buf).to("cuda")
+        words = region_cuda.rows_scratch_words(G, R, L, W, S)
+        scratch = torch.zeros(words + 2
+                              + G * region_cuda.MAX_ROWS_CLUSTER * 16,
+                              dtype=torch.int32, device="cuda")
+        for _ in range(3):
+            out = step(dev, **kw, scratch=scratch)
+        torch.cuda.synchronize()
+        same = torch.equal(out, rs.phase_consensus_rows_flat_plain(dev,
+                                                                   **kw))
+        print(f"[b3 phases] {name} G={G} cluster={nc} "
+              f"smem={plan['smem_bytes']} registers={plan['registers']} "
+              f"equals_plain={same} "
+              + phase_split(scratch, words, G, nc, B3_PHASES, n_real),
+              flush=True)
+
+
+def b3_sweep(chunks, against: str | None) -> bool:
+    """B3 at phase 6b's noisy chunks, at the full chunks and on every dense
+    case: its time through the wrapper at the cluster size it chooses and
+    at every size it can take, and (with ``against``) this checkout's and
+    the other's bare entries in turns, each held to the plain version byte
+    for byte."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
+    other = mine = None
+    if against:
+        other = other_region_rows(against)
+        mine = other_region_rows(HERE)
+    ok = True
+    for name, _n, buf, args in chunks:
+        kw = {**rs.STEP_DEFAULTS, **args}
+        dev = torch.from_numpy(buf).to("cuda")
+        shape = {k: kw[k] for k in ("G", "R", "L", "W")}
+        auto = region_cuda.rows_launch_plan(**shape, S=kw["max_sites"])
+
+        def kernel(cluster=0):
+            region_cuda.CLUSTER = cluster
+            try:
+                return rs.phase_consensus_rows_flat(dev, **kw)
+            finally:
+                region_cuda.CLUSTER = 0
+
+        want = rs.phase_consensus_rows_flat_plain(dev, **kw)
+        same = torch.equal(kernel(), want)
+        line = (f"[b3] {name} G={kw['G']} R={kw['R']} L={kw['L']} "
+                f"W={kw['W']} " + " ".join(f"{k}={v}"
+                                           for k, v in auto.items()))
+        line += f" ms={time_ms(kernel, 10):.4f}"
+        if other is not None:
+            same = (same and torch.equal(other(dev, **kw), want)
+                    and torch.equal(mine(dev, **kw), want))
+            k1, o1 = (time_ms(lambda: mine(dev, **kw), 10),
+                      time_ms(lambda: other(dev, **kw), 10))
+            o2, k2 = (time_ms(lambda: other(dev, **kw), 10),
+                      time_ms(lambda: mine(dev, **kw), 10))
+            line += (f" bare_ms={(k1 + k2) / 2:.4f} ({k1:.4f},{k2:.4f}) "
+                     f"against_ms={(o1 + o2) / 2:.4f} ({o1:.4f},{o2:.4f}) "
+                     f"bare_over_against={(k1 + k2) / (o1 + o2):.3f}")
+        for nc in region_cuda.ROWS_CLUSTERS:
+            plan = region_cuda.rows_launch_plan(**shape, S=kw["max_sites"],
+                                                cluster=nc)
+            if plan["cluster"] != nc:
+                continue
+            same = same and torch.equal(kernel(nc), want)
+            line += f" cluster{nc}_ms={time_ms(lambda: kernel(nc), 10):.4f}"
+        print(f"{line} equals_plain={same}", flush=True)
+        ok = ok and same
+    return ok
 
 
 def b2_sweep(against: str | None) -> bool:
@@ -245,7 +405,7 @@ def b2_sweep(against: str | None) -> bool:
     other = mine = None
     if against:
         other = other_region_step(against)
-        mine = other_region_step(str(Path(__file__).resolve().parents[2]))
+        mine = other_region_step(HERE)
     cases = [(str(key), buf, args)
              for key, buf, args in region_cases.pipeline_delta_chunks()]
     cases += [(name, *region_cases.build(name))
@@ -303,12 +463,18 @@ def main() -> int:
     ap.add_argument("--b2-only", action="store_true",
                     help="time B2 alone (phase 4's delta chunks and the "
                          "region cases)")
+    ap.add_argument("--b3-only", action="store_true",
+                    help="time B3 alone (phase 6b's noisy chunks, the full "
+                         "noisy chunks and the dense cases); with --b2-only "
+                         "both")
     ap.add_argument("--phases", action="store_true",
-                    help="with --b2-only: also time B2's phases at phase "
-                         "4's delta chunks (a build with phase stamps)")
+                    help="with --b2-only or --b3-only: also time the "
+                         "kernel's phases at its chunks (a build with "
+                         "phase stamps)")
     ap.add_argument("--against", metavar="DIR",
-                    help="with --b2-only: also time the B2 of the checkout "
-                         "at DIR, in turns with this one")
+                    help="with --b2-only or --b3-only: also time the "
+                         "kernel of the checkout at DIR, in turns with this "
+                         "one")
     ap.add_argument("--sass", metavar="FILE",
                     help="write the kernels' machine code (cuobjdump -sass) "
                          "to FILE")
@@ -328,10 +494,17 @@ def main() -> int:
                                    "error", "warning")):
             print(f"[build] {line.strip()}", flush=True)
 
-    if args.b2_only:
-        ok = b2_sweep(args.against)
-        if args.phases:
-            b2_phases()
+    if args.b2_only or args.b3_only:
+        ok = True
+        if args.b2_only:
+            ok = b2_sweep(args.against)
+            if args.phases:
+                b2_phases()
+        if args.b3_only:
+            chunks = rows_chunks()
+            if args.phases:
+                b3_phases(chunks)
+            ok = b3_sweep(chunks, args.against) and ok
         return 0 if ok else 1
 
     if args.sass:

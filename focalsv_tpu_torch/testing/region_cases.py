@@ -28,9 +28,11 @@ DEL symbols at sites, no-coverage codes inside a row, rows that cross many
 blocks, rows that run past the true length and past L, W below L and W
 equal to L, padded regions, 0 and 1 het sites, crowded strips with tied
 balances, a MEC that settles late, R 1024 with S 1024 (the bitplanes in
-device memory), a chunk of 51 regions, and sites on both sides of the
+device memory), a chunk of 51 regions, sites on both sides of the
 column-tile edges at 4096, 8192 (half of L, where B3's CTAs split) and
-12288.
+12288, reads in a few windows of a long region (tiles and CTA ranges that
+no read meets), and rows whose W/2 nibble boundary falls at many places of
+a tile.
 
     buf, args = build_rows("rows_symbols")   # args: G, R, L, W, knobs
 """
@@ -446,11 +448,18 @@ def rows_from_delta(t: Tile, W: int) -> RowsTile:
     return RowsTile(rows, t.row_starts, t.region_len, W)
 
 
-def noisy_rows_tile(rng, L_true, n_reads, read_len, n_sites, W, *,
-                    sites=None, err=0.05, del_rate=0.02, n_rate=0.01,
-                    site_del=0.0, site_n=0.0, hole_frac=0.0, over=0,
-                    full=False) -> RowsTile:
-    """Noisy reads of two haplotypes as dense rows: hap-1 reads carry
+def noisy_rows_tile(rng, L_true, n_reads, read_len, n_sites, W,
+                    **kw) -> RowsTile:
+    """Noisy reads of two haplotypes as dense rows (noisy_rows)."""
+    rows, starts = noisy_rows(rng, L_true, n_reads, read_len, n_sites, **kw)
+    return RowsTile(rows, starts, L_true, W)
+
+
+def noisy_rows(rng, L_true, n_reads, read_len, n_sites, *, sites=None,
+               err=0.05, del_rate=0.02, n_rate=0.01, site_del=0.0,
+               site_n=0.0, hole_frac=0.0, over=0, full=False):
+    """Noisy reads of two haplotypes as rows of symbols and their first
+    columns: hap-1 reads carry
     another base at each het site (``sites``, or n_sites drawn); every
     column of a read takes a substitution (err), a DEL (del_rate) or an N
     (n_rate); at a site a read shows DEL with chance site_del and N with
@@ -491,6 +500,17 @@ def noisy_rows_tile(rng, L_true, n_reads, read_len, n_sites, W, *,
             row[a:a + int(rng.integers(5, 50))] = NOCOV
         rows.append(row)
         starts.append(s)
+    return rows, starts
+
+
+def windowed_rows_tile(rng, windows, L_true, W) -> RowsTile:
+    """Noisy reads in windows of a region only: ``windows`` holds (first
+    column, span, reads, read length, het sites) for each."""
+    rows, starts = [], []
+    for at, span, n_reads, read_len, n_sites in windows:
+        r, s = noisy_rows(rng, span, n_reads, read_len, n_sites)
+        rows += r
+        starts += [at + x for x in s]
     return RowsTile(rows, starts, L_true, W)
 
 
@@ -592,6 +612,31 @@ def _rows_tile_edges():
                       R=64, L=16384, W=4096)
 
 
+def _rows_sparse_long():
+    # L 65536 with rows of 8192 columns in a few windows: tiles that no read
+    # meets, and CTAs (of 2 and 4 a region) whose two ranges meet none
+    rng = np.random.default_rng(27)
+    return rows_chunk([windowed_rows_tile(rng, [(2000, 15000, 24, 4000, 12),
+                                                (45000, 9000, 20, 4000, 8)],
+                                          60000, 8192),
+                       windowed_rows_tile(rng, [(33000, 6000, 24, 3000, 8)],
+                                          65536, 8192)],
+                      R=64, L=65536, W=8192)
+
+
+def _rows_straddle_half():
+    # rows of 8192 columns starting on every kind of block and offset, so
+    # that their W/2 nibble boundary falls at many places of a tile and of
+    # each CTA's range, and reads that fill their row to its last column
+    rng = np.random.default_rng(28)
+    full_w = noisy_rows_tile(rng, 8192, 16, 0, 6, 8192, full=True)
+    return rows_chunk([noisy_rows_tile(rng, 16000, 60, 6000, 20, 8192),
+                       noisy_rows_tile(rng, 16384, 60, 6400, 16, 8192,
+                                       site_del=0.1),
+                       full_w],
+                      R=64, L=16384, W=8192)
+
+
 ROWS_CASES = {
     "rows_symbols": _rows_symbols,
     "rows_past_ltrue_and_l": _rows_past_ltrue_and_l,
@@ -602,7 +647,84 @@ ROWS_CASES = {
     "rows_r1024_s1024": _rows_r1024_s1024,
     "rows_g51": _rows_g51,
     "rows_tile_edges": _rows_tile_edges,
+    "rows_sparse_long": _rows_sparse_long,
+    "rows_straddle_half": _rows_straddle_half,
 }
+
+
+# noisy reads whose tiles take the dense encoding on their own: 10 %
+# substitutions, 3 % insertions, 3 % deletions (chip_smoke.py's phase 6b)
+NOISY_READS = dict(sub_rate=0.10, ins_rate=0.03, del_rate=0.03)
+NOISY_SIZES = (15_000, 30_000, 50_000, 100_000)   # bench.py's region sizes
+
+
+def noisy_regions(n: int, seed0: int, sizes=NOISY_SIZES):
+    """n simulated noisy regions at 30x cycling ``sizes``, seeds seed0 + i
+    (testing/simulate.py, one SNP a 1,200 bases)."""
+    from focalsv_tpu_torch.testing import simulate as sim
+    return [sim.simulate_region(seed=seed0 + i,
+                                ref_len=sizes[i % len(sizes)],
+                                coverage=30.0,
+                                n_snps=max(10, sizes[i % len(sizes)] // 1200),
+                                **NOISY_READS) for i in range(n)]
+
+
+def _rows_chunks(regions):
+    """The regions tiled under the ONT preset and packed one dense chunk a
+    bucket at the pipeline's batch size for one device: [(key, real
+    regions, buf, args)] in bucket order, args as build_rows gives them."""
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.parallel import region_step as rs
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    cfg = preset("ONT")
+    tiles = [dx.build_tile(rg.reads, rg.ref, 0, rg.chrom, cfg)
+             for rg in regions]
+    buckets: dict = {}
+    for i, t in enumerate(tiles):
+        buckets.setdefault(dx._bucket_key(t, cfg), []).append(i)
+    out = []
+    for key, idxs in sorted(buckets.items(), key=lambda kv: str(kv[0])):
+        if key is None or key[0] != "dense":
+            raise ValueError(f"a noisy tile took the bucket {key}")
+        G = dx._batch_size(key, cfg, 1)
+        for c0 in range(0, len(idxs), G):
+            part = idxs[c0:c0 + G]
+            _, R, L, W = key
+            out.append((key, len(part),
+                        dx.pack_chunk(tiles + [None],
+                                      part + [len(tiles)] * (G - len(part)),
+                                      key, G),
+                        dict(rs.phase_consensus_kwargs(cfg.phasing), G=G,
+                             R=R, L=L, W=W)))
+    return out
+
+
+def pipeline_rows_chunks(n_regions: int = 8, seed0: int = 3000):
+    """The dense chunks of chip_smoke.py's phase 6b: noisy regions cycling
+    bench.py's sizes, seeds seed0 + i, as the pipeline packs them (one or
+    two real regions a chunk).  [(key, real regions, buf, args)]."""
+    return _rows_chunks(noisy_regions(n_regions, seed0))
+
+
+def full_rows_chunk(key: tuple, seed0: int = 4000):
+    """One chunk of the dense bucket ``key`` whose every slot is a real
+    noisy region of the size in NOISY_SIZES that the bucket takes (seeds
+    seed0 + i): (key, real regions, buf, args)."""
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    G = dx._batch_size(key, preset("ONT"), 1)
+    size = next(s for s in NOISY_SIZES if dx._len_bucket(s) == key[2])
+    chunks = _rows_chunks(noisy_regions(G, seed0, (size,)))
+    if len(chunks) != 1 or chunks[0][0] != key or chunks[0][1] != G:
+        raise ValueError(f"{G} noisy regions of {size} bases did not fill "
+                         f"one {key} chunk: "
+                         f"{[(k, n) for k, n, _b, _a in chunks]}")
+    return chunks[0]
+
+
+# the buckets of phase 6b's noisy regions at the smallest and the largest
+# size (chip_smoke.py times B3 on a full chunk of each)
+FULL_ROWS_KEYS = (("dense", 64, 16384, 16384), ("dense", 256, 131072, 20480))
 
 
 def build_rows(name: str):

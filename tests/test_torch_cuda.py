@@ -500,12 +500,13 @@ def test_rows_kernel_matches_plain_on_card(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 6, 8])
 @pytest.mark.parametrize("name", ["rows_symbols", "rows_tile_edges",
-                                  "rows_r1024_s1024", "rows_g51"])
+                                  "rows_r1024_s1024", "rows_g51",
+                                  "rows_sparse_long", "rows_straddle_half"])
 def test_rows_kernel_at_each_cluster_size(cuda, monkeypatch, cluster, name):
-    """B3 with 1, 2 and 4 CTAs a region, each taking a share of both halves
-    of the columns, against its plain version."""
+    """B3 with 1, 2, 4, 6 and 8 CTAs a region, each taking a share of both
+    halves of the columns, against its plain version."""
     from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.parallel import region_step as rs
     buf, args = region_cases.build_rows(name)

@@ -683,6 +683,8 @@ def test_rows_cases_hold_what_they_name():
     assert n_sites("rows_zero_and_one_het") == [0, 1, 0, 0]
     assert n_sites("rows_crowded_strips") == [16]
     assert n_sites("rows_tile_edges")[0] >= 6
+    assert min(n_sites("rows_sparse_long")) >= 4
+    assert min(n_sites("rows_straddle_half")) >= 1
     _buf, args = region_cases.build_rows("rows_r1024_s1024")
     assert (args["R"], args["max_sites"]) == (1024, 1024)
     # three planes of S rows by R bits: past a CTA's 232,448 bytes
@@ -752,15 +754,98 @@ def test_rows_wrapper_refuses_what_the_kernel_does_not_take():
     ("rows_w_equals_l", 4), ("rows_crowded_strips", 1),
     ("rows_r1024_s1024", 1), ("rows_r1024_s1024", 4),
     ("rows_tile_edges", 1), ("rows_tile_edges", 2), ("rows_tile_edges", 4),
+    ("rows_tile_edges", 8), ("rows_sparse_long", 1), ("rows_sparse_long", 2),
+    ("rows_sparse_long", 4), ("rows_sparse_long", 6), ("rows_sparse_long", 8),
+    ("rows_straddle_half", 1), ("rows_straddle_half", 2),
+    ("rows_straddle_half", 4), ("rows_straddle_half", 6),
+    ("rows_straddle_half", 8), ("rows_g51", 6),
 ])
 def test_rows_kernel_source_on_the_cpu_matches_plain(name, cluster):
     """B3's source (csrc/region_step.cu, RowsSrc) compiled by g++ against
-    the CPU stand-in for the CUDA runtime, with 1, 2 or 4 CTAs a region
-    (0: the kernel's choice on a card of 132 SMs): the bytes of the plain
-    version."""
+    the CPU stand-in for the CUDA runtime, with 1 to 8 CTAs a region (0:
+    the kernel's choice on a card of 132 SMs; more than one: ranges cut by
+    the regions' read cover): the bytes of the plain version."""
     from focalsv_tpu_torch.testing import host_kernel
     buf, args = region_cases.build_rows(name)
     kw = {**trs.STEP_DEFAULTS, **args}
     want = trs.phase_consensus_rows_flat_plain(torch.from_numpy(buf), **kw)
     np.testing.assert_array_equal(
         host_kernel.region_rows(buf, **kw, cluster=cluster), want.numpy())
+
+
+def _rows_of(name):
+    """A dense case's valid rows: region, first column, W, L, G."""
+    buf, args = region_cases.build_rows(name)
+    G, R, L, W = (args[k] for k in ("G", "R", "L", "W"))
+    lay = rows_flat_layout(G, R, W)
+    q = buf[slice(*lay["qstart"])].view(np.int32).reshape(G, R)
+    rv = buf[slice(*lay["rv"])].reshape(G, R) != 0
+    g, r = np.nonzero(rv)
+    return g, q[g, r].astype(np.int64) * 128, W, L, G
+
+
+def test_rows_sparse_and_straddle_cases_hold_what_they_name():
+    """rows_sparse_long: with 2 and with 4 CTAs a region taking equal
+    shares of both halves of the columns, some CTA's two ranges would meet
+    no read, and some tile of 4096 columns meets none.  rows_straddle_half:
+    the rows' W/2 nibble boundaries fall at many places of a tile, and some
+    row is filled to its last column."""
+    g, lo, W, L, G = _rows_of("rows_sparse_long")
+    assert L >= 65536 and W <= 16384
+    half = L // 2
+    for nc in (2, 4):
+        groups = half // 64
+        empty = 0
+        for reg in range(G):
+            for rank in range(nc):
+                c0 = rank * groups // nc * 64
+                c1 = (rank + 1) * groups // nc * 64
+                a, b = lo[g == reg], lo[g == reg] + W
+                meets = ((a < c1) & (b > c0)) | ((a < c1 + half)
+                                                 & (b > c0 + half))
+                empty += not meets.any()
+        assert empty >= 1, nc
+    tiles = np.zeros((G, L // 4096), bool)
+    for reg, a in zip(g, lo):
+        tiles[reg, max(a, 0) // 4096:min(a + W, L) // 4096 + 1] = True
+    assert not tiles.all()
+    g, lo, W, L, G = _rows_of("rows_straddle_half")
+    assert len(np.unique((lo + W // 2) % 4096)) >= 16
+    buf, args = region_cases.build_rows("rows_straddle_half")
+    lay = rows_flat_layout(args["G"], args["R"], W)
+    rows = buf[slice(*lay["rows"])].reshape(args["G"], args["R"], W // 2)
+    # the last column of a row: the high nibble of its last byte
+    assert ((rows[:, :, -1] >> 4) != 15).any()
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_rows_kernel_source_with_lists_in_scratch(cluster):
+    """B3's source on the CPU where a CTA's shared memory is one byte short
+    of the plan that holds the read lists and qstart: they move to the
+    wrapper's scratch, and the bytes stay the plain version's."""
+    from focalsv_tpu_torch.testing import host_kernel
+    buf, args = region_cases.build_rows("rows_tile_edges")
+    kw = {**trs.STEP_DEFAULTS, **args}
+    full = host_kernel.rows_plan(**kw, cluster=cluster)
+    assert full["lists_in_smem"] and full["cluster"] == cluster
+    tight = host_kernel.rows_plan(**kw, cluster=cluster,
+                                  smem_bytes=full["smem_bytes"] - 1)
+    assert not tight["lists_in_smem"]
+    want = trs.phase_consensus_rows_flat_plain(torch.from_numpy(buf), **kw)
+    np.testing.assert_array_equal(
+        host_kernel.region_rows(buf, **kw, cluster=cluster,
+                                smem_bytes=full["smem_bytes"] - 1),
+        want.numpy())
+
+
+def test_rows_kernel_source_with_the_smallest_ring():
+    """B3's source built with a ring of 2 stages of 1 read (each step's
+    copies waited for before the next is issued) on the CPU: the plain
+    version's bytes."""
+    from focalsv_tpu_torch.testing import host_kernel
+    buf, args = region_cases.build_rows("rows_tile_edges")
+    kw = {**trs.STEP_DEFAULTS, **args}
+    want = trs.phase_consensus_rows_flat_plain(torch.from_numpy(buf), **kw)
+    np.testing.assert_array_equal(
+        host_kernel.region_rows(buf, **kw, cluster=2, ring=(2, 1)),
+        want.numpy())
