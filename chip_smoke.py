@@ -92,7 +92,10 @@ ranks take a card each.
 The last two lines are the kernels' JSON record and the result line.  A
 kernel's bound_ms is the larger of its bytes (each input read once, each
 output written once) over the card's memory rate and its integer operations
-over the card's int32 rate, for this run's inputs.  All data is simulated
+over the card's int32 rate, for this run's inputs.  A kernel's ms is the
+mean of calls issued back to back through its wrapper; B2 and B3 also
+report queued_ms, the same calls queued behind a sleep of the stream, which
+leaves out the host's time to issue a call.  All data is simulated
 from fixed seeds; scratch files go under build/.
 """
 
@@ -670,7 +673,9 @@ def against_plain(case, buf, kw, cpu_out=None) -> dict:
     """B2 (a delta chunk) or B3 (a dense chunk: kw has W) on the card
     against its plain version on the card and on the CPU, byte for byte;
     ms a chunk of both on the card (CUDA events, in turns: kernel, plain,
-    plain, kernel), its bound and its launch plan."""
+    plain, kernel, each call issued as the last one returns), the kernel's
+    ms with its calls queued behind a sleep of the stream (queued_ms: the
+    card's time alone), its bound and its launch plan."""
     from focalsv_tpu_torch.parallel import region_step as rs
     kw = {**rs.STEP_DEFAULTS, **kw}
     dense = "W" in kw
@@ -695,21 +700,21 @@ def against_plain(case, buf, kw, cpu_out=None) -> dict:
     host = out.cpu().numpy()
     err = int(np.abs(host.astype(np.int16) - cpu_out.astype(np.int16)).max())
     err = max(err, int((out.int() - on_card.int()).abs().max()))
-    k1, p1 = time_ms(kernel, 20, queued=True), time_ms(plain, 2)
-    p2, k2 = time_ms(plain, 2), time_ms(kernel, 20, queued=True)
-    call = time_ms(kernel, 20)
+    k1, p1 = time_ms(kernel, 20), time_ms(plain, 2)
+    p2, k2 = time_ms(plain, 2), time_ms(kernel, 20)
+    queued = time_ms(kernel, 20, queued=True)
     bound, by = (b3_bound(buf, dev, out, kw) if dense
                  else b2_bound(dev, out, kw))
     plan = launch_plan(kw)
     row = dict(case=case, L=kw["L"], max_abs_err=err, ms=(k1 + k2) / 2,
-               call_ms=call, plain_ms=(p1 + p2) / 2, bound_ms=bound,
+               queued_ms=queued, plain_ms=(p1 + p2) / 2, bound_ms=bound,
                bound_by=by, **plan)
     shape = (f"W={kw['W']} cells={rows_cells(buf, kw)} "
              f"row_bytes={rows_bytes(buf, kw)}" if dense
              else f"Drle={kw['Drle']}")
     log(f"[{name.lower()}] {case}: G={kw['G']} R={kw['R']} L={kw['L']} "
         f"{shape} S={kw['max_sites']} max_abs_err={err} (card plain and "
-        f"CPU) kernel_ms={k1:.4f},{k2:.4f} call_ms={call:.4f} "
+        f"CPU) kernel_ms={k1:.4f},{k2:.4f} queued_ms={queued:.4f} "
         f"plain_ms={p1:.2f},{p2:.2f} "
         f"bound_ms={bound:.4f} bound_by={by} "
         f"share_of_bound={bound / ((k1 + k2) / 2):.3f} "
@@ -1779,7 +1784,9 @@ def main() -> int:
         # no single PyTorch call computes the region step
         "library_ms": None,
         "cluster": hifi.get("cluster"), "smem_bytes": hifi.get("smem_bytes"),
+        "queued_ms": hifi["queued_ms"],
         "ms_by_chunk": {f"L{r['L']}": r["ms"] for r in b2},
+        "queued_ms_by_chunk": {f"L{r['L']}": r["queued_ms"] for r in b2},
         "bound_ms_by_chunk": {f"L{r['L']}": r["bound_ms"] for r in b2}})
     for path in ("region_step_chunks", "noisy_target_mode",
                  "sharded_region_step", "dry_run"):
@@ -1801,7 +1808,10 @@ def main() -> int:
         # no single PyTorch call computes the region step
         "library_ms": None,
         "cluster": noisy.get("cluster"), "smem_bytes": noisy.get("smem_bytes"),
+        "queued_ms": noisy["queued_ms"],
         "ms_by_chunk": {r["case"]: r["ms"] for r in b3 + b3_noisy},
+        "queued_ms_by_chunk": {r["case"]: r["queued_ms"]
+                               for r in b3 + b3_noisy},
         "plain_ms_by_chunk": {r["case"]: r["plain_ms"]
                               for r in b3 + b3_noisy},
         "bound_ms_by_chunk": {r["case"]: r["bound_ms"]

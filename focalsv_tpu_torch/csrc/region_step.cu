@@ -94,8 +94,6 @@
 //    count, and a read that meets no column of a tile adds nothing there.
 //  - Column words (B3): six 5-bit fields count at most 31 reads before
 //    they are added to the int counts; codes past 5 add nothing.
-//  - CTA ranges cut by read cover (B3): a column's counts depend on no
-//    other column, so where a range ends changes nothing but who counts it.
 //  - Packed counts: the sum of a + 65536 b over events is exact in int32
 //    while every partial count of either half lies in (-32768, 32768).
 //  - Bitplanes in place of the (R, S) int8 matrix: A == h, A == 1 - h and
@@ -1352,12 +1350,11 @@ struct DeltaSrc {
 // whose G clusters the card holds at once, see plan), CTA r taking the same
 // range [c_lo, c_hi) of each half of the columns, in whole groups of 64, so
 // that the byte holding column i and column i + L/2 of a track is written by
-// one CTA: equal shares, or where each CTA holds 4 tiles or more, shares of
-// the region's read cover (balance).  The CTA lays its two ranges end to end as one run of 2 (c_hi -
-// c_lo) columns, cut in tiles of 4096: a thread holds 8 columns of a tile,
-// and every thread holds columns wherever the run fills the tile (tiles of
-// each half apart would leave half the threads without columns at L 16384
-// and 4 CTAs a region).  Per region:
+// one CTA, in equal shares.  The CTA lays its two ranges end to end as one
+// run of 2 (c_hi - c_lo) columns, cut in tiles of 4096: a thread holds 8
+// columns of a tile, and every thread holds columns wherever the run fills
+// the tile (tiles of each half apart would leave half the threads without
+// columns at L 16384 and 4 CTAs a region).  Per region:
 //  0. Reads binned by tile.  Each valid read's qstart is staged in shared
 //     memory; a counting sort (a histogram over the CTA's tiles, a scan, a
 //     scatter) lists, for each tile, the reads whose row meets it (16-bit
@@ -1628,75 +1625,7 @@ struct RowsSrc {
     __pipeline_wait_prior(0);          // the empty groups past the last
   }
 
-  // This CTA's range of groups of kRangeCols columns (the same in both
-  // halves) by the region's read cover, so that the CTAs' sweeps take about
-  // the same time where a region fills its L unevenly: the group pairs'
-  // weights (the reads over a group in either half, plus kColWeight for the
-  // columns' own work) cut into nc runs of about equal sums.  Every CTA
-  // computes the same cuts.  Only where each CTA's equal run holds
-  // kBalanceTiles tiles or more: below that the count costs more than it
-  // saves (PERF.md section 6).  The cover is counted in the ring, which is
-  // free until the sweep; where it does not fit, the ranges stay equal.
-  static __device__ void balance(const Params& p, Ctx& c) {
-    constexpr int kColWeight = 4, kBalanceTiles = 4;
-    const int groups = p.L / 2 / kRangeCols, n = 2 * groups;
-    if (p.nc == 1 || p.L / p.nc < kBalanceTiles * kTile ||
-        (3LL * groups + 3) * 4 > kRingBytes)
-      return;
-    int* cov = reinterpret_cast<int*>(c.ring);   // (n + 1,) then the cover
-    int* ex = cov + n + 1;                       // (groups + 1,) prefix sums
-    for (int i = threadIdx.x; i <= n; i += blockDim.x) cov[i] = 0;
-    __syncthreads();
-    for (int r = threadIdx.x; r < p.R; r += blockDim.x) {
-      if (!c.rv[r]) continue;
-      const long long lo = (long long)c.qstart[r] * kBlock;
-      const long long a = lo > 0 ? lo : 0, b = lo + p.W < p.L ? lo + p.W : p.L;
-      if (a >= b) continue;
-      atomicAdd(&cov[a / kRangeCols], 1);
-      atomicAdd(&cov[(b - 1) / kRangeCols + 1], -1);
-    }
-    __syncthreads();
-    int run = 0, tot;
-    for (int i0 = 0; i0 < n; i0 += blockDim.x) {      // the cover of a group
-      const int i = i0 + threadIdx.x;
-      const int d = i < n ? cov[i] : 0;
-      const int v = run + block_excl_scan(d, c.wsum, tot) + d;
-      if (i < n) cov[i] = v;
-      run += tot;
-    }
-    __syncthreads();
-    run = 0;
-    for (int g0 = 0; g0 <= groups; g0 += blockDim.x) {  // prefix of weights
-      const int g = g0 + threadIdx.x;
-      const int w = g < groups ? cov[g] + cov[g + groups] + kColWeight : 0;
-      const int e = run + block_excl_scan(w, c.wsum, tot);
-      if (g <= groups) ex[g] = e;
-      run += tot;
-    }
-    __syncthreads();
-    // cut k: the group after which the sum first reaches ceil(k T / nc)
-    const long long T = ex[groups];
-    int* cut = ex + groups + 1;                  // this CTA's two cuts
-    for (int g = threadIdx.x; g < groups; g += blockDim.x)
-      for (int k = c.rank; k <= c.rank + 1; ++k) {
-        const long long target = (k * T + p.nc - 1) / p.nc;
-        if (k > 0 && k < p.nc && ex[g] < target && target <= ex[g + 1])
-          cut[k - c.rank] = g + 1;
-      }
-    if (threadIdx.x == 0) {
-      if (c.rank == 0) cut[0] = 0;
-      if (c.rank + 1 == p.nc) cut[1] = groups;
-    }
-    __syncthreads();
-    c.c_lo = cut[0] * kRangeCols;
-    c.c_hi = cut[1] * kRangeCols;
-    c.hl = c.c_hi - c.c_lo;
-    c.n_tiles = (2 * c.hl + kTile - 1) / kTile;
-    __syncthreads();                             // the ring is the sweep's
-  }
-
-  static __device__ void sites(const Params& p, Ctx& c) {
-    balance(p, c);
+  static __device__ void sites(const Params& p, const Ctx& c) {
     bin_reads(p, c);
     PHASE(1);
     const int strip = imax((c.ltrue + p.S - 1) / p.S, 1);
@@ -1769,7 +1698,6 @@ struct RowsSrc {
       write_dense(p, c, col0, hi, cs);
     });
     PHASE(5);
-    if (p.nc > 1) cluster.sync();    // the leader's hp was read: it may end
   }
 };
 
@@ -1829,6 +1757,10 @@ __global__ void __launch_bounds__(kThreads, 1) region_step_kernel(Params p) {
   cluster.sync();                  // every read's haplotype is in
   read_classes(p, c, cluster);
   Src::votes(p, c, cluster);
+  // the leader's hp (and, for B2, its column L - 1) went through
+  // distributed shared memory: it may not end before the others are done.
+  // B2's finish_runs ends in a cluster barrier of its own.
+  if (p.nc > 1 && (p.rows || p.Drle == 0)) cluster.sync();
   PHASE(6);
 }
 
@@ -2010,9 +1942,12 @@ int plan(Params& p, int cluster, cudaLaunchConfig_t& cfg,
       (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   for (;;) {
     p.nc = nc;
-    // B3: a CTA's run of its two ranges, at most (balance may give one
-    // CTA all the columns)
-    p.tiles_per_cta = p.rows ? n_tiles : (n_tiles + nc - 1) / nc;
+    // B3: the tiles of a CTA's run of its two ranges, at most
+    const int groups = p.L / 2 / kRangeCols;
+    p.tiles_per_cta =
+        p.rows ? (2 * ((groups + nc - 1) / nc) * kRangeCols + kTile - 1) /
+                     kTile
+               : (n_tiles + nc - 1) / nc;
     size_t smem = 0;
     bool fits = false;
     for (int k = 0; k < 4 && !fits; ++k) {

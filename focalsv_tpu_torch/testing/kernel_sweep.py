@@ -37,12 +37,17 @@ those chunks, from a build that stamps the card's clock at each boundary
 ``--b3-only`` does the same for B3 at chip_smoke.py's phase 6b chunks (8
 noisy regions, one or two a chunk; testing/region_cases.py::
 pipeline_rows_chunks), at a full chunk of the smallest and of the largest
-noisy bucket (full_rows_chunk) and on every dense case, with 1, 2 and 4 CTAs
-a region (region_cuda.ROWS_CLUSTERS); ``--phases`` adds its time by phase at
+noisy bucket (full_rows_chunk) and on every dense case, with each cluster
+size of region_cuda.ROWS_CLUSTERS; ``--phases`` adds its time by phase at
 the noisy chunks, over the CTAs of their real regions: the reads binned by
 tile, the site sweep, the leader (sites, alleles, phasing), the reads'
 classes and the vote sweep.  Both flags together run both.  Needs a CUDA
 device; exits 1 without one.
+
+Every time here is taken with the calls queued behind a sleep of the
+stream (time_ms), so it is the card's time alone; chip_smoke.py's ``ms``
+is taken with the calls issued back to back, and reports the queued time
+beside it as ``queued_ms``.
 """
 
 from __future__ import annotations

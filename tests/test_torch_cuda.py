@@ -441,6 +441,26 @@ def test_region_kernel_at_each_cluster_size(cuda, monkeypatch, cluster,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_region_kernel_dense_tracks_at_each_cluster_size(cuda, monkeypatch,
+                                                         cluster):
+    """B2 with dense tracks (Drle 0) asked for 2 and 4 CTAs a region: one
+    CTA writes a byte's two columns, so the plan takes one CTA, and the
+    bytes are the plain version's."""
+    from focalsv_tpu_torch.ops import region_cuda
+    from focalsv_tpu_torch.parallel import region_step as rs
+    buf, args = region_cases.build("hifi_dense")
+    kw = {**rs.STEP_DEFAULTS, **args}
+    assert kw["Drle"] == 0
+    plan = region_cuda.launch_plan(
+        **{k: kw[k] for k in ("G", "R", "L", "Ds", "Dd", "Drle")},
+        S=kw["max_sites"], cluster=cluster)
+    assert plan["cluster"] == 1
+    monkeypatch.setattr(region_cuda, "CLUSTER", cluster)
+    _region_kernel_vs_plain(cuda, buf, args)
+
+
+@pytest.mark.cuda
 def test_named_card_runs_without_a_mesh(cuda, monkeypatch, tmp_path):
     """Device mode on a named card builds no mesh over the other cards,
     whatever their count, and writes the golden HIFI VCF on that card."""

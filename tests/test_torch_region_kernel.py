@@ -642,13 +642,15 @@ def test_column_ranges_merge_keys_and_offset_runs(n_ranges):
 @pytest.mark.parametrize("name,cluster", [
     ("zero_and_one_het", 0), ("mec_one_round", 1), ("bands_half", 1),
     ("hifi_blocks", 1), ("hifi_blocks", 2), ("hifi_dense", 0),
+    ("hifi_dense", 2), ("hifi_dense", 4),
     ("hifi_overflow", 4), ("range_edges", 2), ("range_edges", 4),
     ("ltrue_in_last_range", 4), ("del_spans_range", 2), ("r1024_s1024", 1),
 ])
 def test_kernel_source_on_the_cpu_matches_plain(name, cluster):
     """csrc/region_step.cu compiled by g++ against the CPU stand-in for the
-    CUDA runtime, with 1, 2 or 4 CTAs a region: the bytes of the plain
-    version (which the other tests hold to the JAX package)."""
+    CUDA runtime, with 1, 2 or 4 CTAs a region (dense tracks take one CTA
+    whatever is asked): the bytes of the plain version (which the other
+    tests hold to the JAX package)."""
     from focalsv_tpu_torch.testing import host_kernel
     buf, args = region_cases.build(name)
     kw = {**trs.STEP_DEFAULTS, **args}
