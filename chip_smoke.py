@@ -8,9 +8,9 @@ on the card in phases, and exits non-zero at the first phase that fails:
 1. device check (a CUDA card must be present) and the card's name and power
    limit as nvidia-smi reports them; the port's g++-built host libraries
    (native/*.cpp) must build and load;
-2. build the kernels (csrc/*.cu: B1, the banded DP, B4, its traceback, and
-   B2 and B3, the delta and the dense region step) with nvcc for sm_90a, one
-   nvcc per source;
+2. build the kernels (csrc/*.cu: B1, the banded DP, B4, its traceback, B2
+   and B3, the delta and the dense region step, and B6, the pair-HMM
+   forward pass) with nvcc for sm_90a, one nvcc per source;
 3. B1 against its plain PyTorch version, both on the card, byte for byte
    (tolerance 0), at the shapes of the main path: OLC read polish at
    batches of 128, 2 and 1 pairs, aligner gap fill, a leading-insertion
@@ -63,9 +63,20 @@ on the card in phases, and exits non-zero at the first phase that fails:
    and B4; the VCFs must equal those of the same run on the CPU
    (FOCALSV_TORCH_DEVICE=cpu, in a subprocess), and both kernels must
    have been launched;
-9. the pair-HMM forward pass on the card against the CPU at the
-   realignment shape (4,000 windows of 29 bases) within 1e-3, and one
-   host-mode region with use_pairhmm=True on the card against the CPU;
+9. the pair-HMM realignment (use_pairhmm=True).  9a: B6 against its plain
+   version on the card, on every case of the CPU tests
+   (testing/pairhmm_cases.py) and at the realignment's shapes (4,000 and
+   15,000 windows of 29 bases against the ref and the alt window, one
+   launch) and a wide one (reads of 48, windows of 64 and 40): the
+   per-diagonal terms byte for byte, the results within 1e-5 with -inf at
+   the same places; timed in turns, with the launches and copies of a call
+   of each (torch.profiler).  9b: run_target_mode with use_pairhmm=True in
+   device mode on the card, on phase 6's 32 HiFi regions and phase 6b's 8
+   noisy ones, and on the CPU (FOCALSV_TORCH_DEVICE=cpu, the plain version,
+   in a subprocess; the HiFi run on the first 8 regions, two of each size,
+   which the card runs too): equal VCFs, B6 launched on each path and the
+   plain version never called on the card; regions/s beside phase 6's
+   guided run;
 10. evaluation.cli bench of phase 6's device VCF against the simulation's
    truth; prints F1;
 11. the multi-device and multi-process path on a mesh of every card present
@@ -85,14 +96,16 @@ on the card in phases, and exits non-zero at the first phase that fails:
 Phase 4 also prints the region step's card time by kernel name for one
 delta and one rows chunk (torch.profiler); each must take at most 5
 launches and copies.  B2's and B3's launches are read from their counts on
-every path that runs the region step (phases 4, 5, 6, 6b, 7 and 11).  The
+every path that runs the region step (phases 4, 5, 6, 6b, 7 and 11), B6's
+on each run of phase 9b.  The
 script runs unchanged on a machine with several cards: phase 11's mesh and
 ranks take a card each.
 
 The last two lines are the kernels' JSON record and the result line.  A
 kernel's bound_ms is the larger of its bytes (each input read once, each
 output written once) over the card's memory rate and its integer operations
-over the card's int32 rate, for this run's inputs.  A kernel's ms is the
+over the card's int32 rate (B6: its FP32 instructions over the FP32 rate),
+for this run's inputs.  A kernel's ms is the
 mean of calls issued back to back through its wrapper; B2 and B3 also
 report queued_ms, the same calls queued behind a sleep of the stream, which
 leaves out the host's time to issue a call.  All data is simulated
@@ -101,9 +114,11 @@ from fixed seeds; scratch files go under build/.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -245,7 +260,8 @@ def build_kernels() -> None:
     for line in _build.build_log.splitlines():
         if "Compiling entry" in line:
             # the kernel's name out of its mangled symbol
-            line = "kernel " + next(
+            group = re.search(r"pairhmm_kernelILi(\d)E", line)
+            name = next(
                 (name for k, name in (
                     ("banded_align_reg_kernelILi4E", "B1 registers, 4 cells"),
                     ("banded_align_reg_kernelILi8E", "B1 registers, 8 cells"),
@@ -256,6 +272,8 @@ def build_kernels() -> None:
                     ("region_step_kernelINS_8DeltaSrc", "B2"),
                     ("region_step_kernelINS_7RowsSrc", "B3"))
                  if k in line), line)
+            line = "kernel " + (f"B6, {group[1]} groups of 32 rows"
+                                if group else name)
         elif not ("registers" in line or "spill" in line):
             continue
         log(f"[build] {line.strip()}")
@@ -851,13 +869,17 @@ def write_chromosome(regions, work: str):
     return bam_path, fa_path, beds
 
 
-def run_mode(bam, fa, bed, out, method, mode, n, mesh=None, dtype="HIFI"):
+def run_mode(bam, fa, bed, out, method, mode, n, mesh=None, dtype="HIFI",
+             pairhmm=False):
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.pipeline import main
     cfg = preset(dtype)
     cfg = cfg.replace(
         assembly=dataclasses.replace(cfg.assembly, method=method),
-        execution=dataclasses.replace(cfg.execution, mode=mode))
+        execution=dataclasses.replace(cfg.execution, mode=mode),
+        phasing=dataclasses.replace(cfg.phasing, use_pairhmm=pairhmm))
+    if pairhmm:
+        method += " use_pairhmm"
     t0 = time.perf_counter()
     final = main.run_target_mode(bam, fa, out, cfg, target_bed=bed,
                                  num_workers=8, mesh=mesh)
@@ -982,10 +1004,11 @@ def noisy_cpu_run(bam, fa, bed, out) -> None:
              dtype="ONT")
 
 
-def noisy_slice(work: str) -> list[dict]:
+def noisy_slice(work: str) -> tuple[list[dict], dict]:
     """Phase 6b: the noisy regions through run_target_mode (ONT preset) on
     the card, on the CPU and in host mode; then B3 against its plain
-    version at every noisy chunk.  Returns B3's rows of those chunks."""
+    version at every noisy chunk.  Returns B3's rows of those chunks and
+    the run's BAM, FASTA and BED."""
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.pipeline import device_exec as dx
     from focalsv_tpu_torch.testing import region_cases
@@ -1063,8 +1086,9 @@ def noisy_slice(work: str) -> list[dict]:
     rows = [against_plain(f"noisy {key} real={n_real}", buf,
                           rows_kwargs(key, G, cfg))
             for cfg, key, G, n_real, buf in region_chunks([(cfg, tiles)], 1)]
-    return rows + [full_noisy_chunk(key)
-                   for key in region_cases.FULL_ROWS_KEYS]
+    return (rows + [full_noisy_chunk(key)
+                    for key in region_cases.FULL_ROWS_KEYS],
+            dict(bam=bam, fasta=fa, bed=bed))
 
 
 def full_noisy_chunk(key) -> dict:
@@ -1248,59 +1272,295 @@ def complex_svs(work: str, olc_out: str, fasta: str) -> tuple[int, int]:
 
 # -- phase 9 ----------------------------------------------------------------
 
-def pairhmm_phase(region) -> None:
-    import dataclasses as dc
+# kernel B6's FP32 instructions per cell the data needs (read row i <=
+# read_len, haplotype column j <= hap_len): 7 expf and 3 logf (libdevice,
+# some 8 and 20 instructions) and some 30 adds, maxima and selects
+B6_OPS_PER_CELL = 150
+# one FP32 instruction a lane a cycle: 67 TFLOP/s counts an FMA as two
+FP32_INSTR_PER_S = 67e12 / 2
+# phase 9b's HiFi run on the CPU takes the first 8 of phase 6's 32 regions
+# (two of each size): the plain version there is the time limit's concern
+N_PAIRHMM_CPU_REGIONS = 8
+# kernel B6's launches, the windows they computed and the plain version's
+# calls on each path that runs the pair-HMM, each read from its count, set
+# to 0 just before the path
+B6_LAUNCHES: dict = {}
+B6_WINDOWS: dict = {}
+B6_PLAIN_CALLS: dict = {}
 
-    from focalsv_tpu_torch.config import preset
+
+def reset_b6_counts() -> None:
+    """B6's counts and the plain version's to 0, just before a path (no
+    thread of the port runs then)."""
+    from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
+    pairhmm_cuda.reset_launches()
+    pairhmm.plain_calls = 0
+
+
+def record_b6_counts(path: str) -> None:
+    from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
+    B6_LAUNCHES[path] = pairhmm_cuda.launches
+    B6_WINDOWS[path] = pairhmm_cuda.windows
+    B6_PLAIN_CALLS[path] = pairhmm.plain_calls
+
+
+def b6_bound(case) -> tuple[float, str]:
+    """The least time of B6 on this batch: its bytes (the reads, their
+    emissions and lengths, each window and length, each result) over the
+    memory rate against the cells the data needs times B6_OPS_PER_CELL over
+    the FP32 instruction rate."""
+    M = case["max_read"]
+    B = len(case["read_lens"])
+    rl = np.clip(case["read_lens"].astype(np.int64), 0, M)
+    cells = sum(int((rl * np.clip(hl.astype(np.int64), 0, hap.shape[1])
+                     ).sum()) for hap, hl in case["haps"])
+    nbytes = B * M * (1 + 2 * 4) + 4 * B + sum(
+        B * hap.shape[1] + 8 * B for hap, _ in case["haps"])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = cells * B6_OPS_PER_CELL / FP32_INSTR_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def profiled_launches(fn, must_show: str | None = None) -> int | None:
+    """Kernel launches and copies of one call of fn on the card
+    (torch.profiler); a profile that does not list ``must_show`` (or lists
+    nothing) is taken again, up to PROFILE_TRIES times (see
+    profile_chunk), and None when none does: the count is a measurement,
+    and the kernel's own count shows that it launched."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_TRIES):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        rows = [(e.key, e.count) for e in prof.key_averages()
+                if e.self_device_time_total > 0
+                and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if rows and (must_show is None
+                     or any(must_show in k for k, _n in rows)):
+            return sum(n for _k, n in rows)
+    log(f"[profile] torch.profiler recorded no launch"
+        f"{f' of {must_show}' if must_show else ''} in {PROFILE_TRIES} "
+        f"tries")
+    return None
+
+
+def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
+    """B6 against its plain version on the card, both from the same numpy
+    inputs: the terms byte for byte, the results within 1e-5 (B6 sums the
+    terms in another order than torch.sum), -inf at the same places.
+    ``timed``: ms of the wrapper's calls on the inputs already on the card
+    (back to back, and queued behind a sleep of the stream), of the plain
+    version's calls (a call a haplotype, from the numpy inputs), in turns;
+    the bound; the launches and copies of one call of each (the kernel's
+    entry from the numpy inputs: copy in, emissions, B6, copy out)."""
+    from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
+    from focalsv_tpu_torch.testing import pairhmm_cases
+    before = pairhmm_cuda.launches
+    got = pairhmm_cases.kernel(case, DEVICE)
+    one_launch = pairhmm_cuda.launches == before + 1
+    d = pairhmm_cases.differences(got, pairhmm_cases.plain(case, DEVICE))
+    widths = [hap.shape[1] for hap, _ in case["haps"]]
+    row = dict(case=name, B=len(case["read_lens"]), M=case["max_read"],
+               N=widths, max_abs_err=d["out_err"], **d)
+    timing = ""
+    if timed:
+        args = pairhmm.kernel_inputs(
+            case["reads"], case["read_lens"],
+            [(hap, hl, hap.shape[1]) for hap, hl in case["haps"]],
+            case["quals"], case["max_read"], DEVICE, **case["gaps"])
+
+        def kernel():
+            return pairhmm_cuda.pairhmm_cuda(*args)
+
+        def plain():
+            return pairhmm_cases.plain(case, DEVICE)
+
+        kernel()
+        k1, p1 = time_ms(kernel, 20), time_ms(plain, 1)
+        p2, k2 = time_ms(plain, 1), time_ms(kernel, 20)
+        queued = time_ms(kernel, 20, queued=True)
+        bound, by = b6_bound(case)
+        row.update(
+            ms=(k1 + k2) / 2, queued_ms=queued, plain_ms=(p1 + p2) / 2,
+            bound_ms=bound, bound_by=by,
+            entry_launches=profiled_launches(
+                lambda: pairhmm_cases.kernel(case, DEVICE), "pairhmm_kernel"),
+            plain_launches=profiled_launches(plain))
+        timing = (f" kernel_ms={k1:.4f},{k2:.4f} queued_ms={queued:.4f} "
+                  f"plain_ms={p1:.2f},{p2:.2f} bound_ms={bound:.4f} "
+                  f"bound_by={by} share_of_bound={bound / queued:.3f} "
+                  f"(queued) launches and copies a call (torch.profiler; "
+                  f"None: not recorded): B6's entry "
+                  f"{row['entry_launches']}, plain "
+                  f"{row['plain_launches']}")
+    log(f"[b6] {name}: B={row['B']} M={row['M']} N={widths} terms "
+        f"byte-equal={d['terms_bytes_equal']} -inf at the same places="
+        f"{d['same_inf']} max_abs_err={d['out_err']:.3g} (tolerance 1e-5) "
+        f"one launch of B6: {one_launch}" + timing)
+    if not (d["terms_bytes_equal"] and d["same_inf"]
+            and d["out_err"] <= 1e-5 and one_launch):
+        raise AssertionError(f"B6 differs from its plain version ({name})")
+    return row
+
+
+def pairhmm_phase() -> list[dict]:
+    """Phase 9a: B6 against its plain version on the card, on every case of
+    the CPU tests and at phase 9's shapes (timed); the forward pass of one
+    haplotype by the host clock, copies included, as PR 8 took it."""
     from focalsv_tpu_torch.ops import pairhmm
-    from focalsv_tpu_torch.pipeline.region import process_region
-    rng = np.random.default_rng(9)
-    B, L = 4000, 29
-    haps = rng.integers(0, 4, (B, L)).astype(np.uint8)
-    reads = np.full((B, L), 5, np.uint8)
-    reads[:, :21] = haps[:, 4:25]
-    flip = rng.random((B, 21)) < 0.05
-    reads[:, :21][flip] = (reads[:, :21][flip] + 1) % 4
-    quals = rng.integers(5, 41, (B, L)).astype(np.int32)
-    rl, hl = np.full(B, 21, np.int32), np.full(B, L, np.int32)
-    kw = dict(max_read=L, max_hap=L)
-    card = pairhmm.pairhmm_forward_batch(reads, rl, haps, hl, quals,
-                                         device=DEVICE, **kw)
+    from focalsv_tpu_torch.testing import pairhmm_cases
+    rows = [b6_against_plain(name, pairhmm_cases.build(name), False)
+            for name in sorted(pairhmm_cases.CASES)]
+    rows += [b6_against_plain(name, build(9), True)
+             for name, build in pairhmm_cases.CARD_SHAPES.items()]
+    case = pairhmm_cases.CARD_SHAPES["realign_B4000"](9)
+    ref, hl = case["haps"][0]
+    args = (case["reads"], case["read_lens"], ref, hl, case["quals"])
+    kw = dict(max_read=29, max_hap=29, device=DEVICE)
+    pairhmm.pairhmm_forward_batch(*args, **kw)
     t0 = time.perf_counter()
-    pairhmm.pairhmm_forward_batch(reads, rl, haps, hl, quals, device=DEVICE,
-                                  **kw)
+    pairhmm.pairhmm_forward_batch(*args, **kw)
     card_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    cpu = pairhmm.pairhmm_forward_batch(reads, rl, haps, hl, quals,
-                                        device="cpu", **kw)
-    cpu_ms = (time.perf_counter() - t0) * 1e3
-    err = float(np.abs(card - cpu).max())
-    log(f"[pairhmm] forward B={B} L={L}: card vs CPU max_abs_err={err:.2e} "
-        f"(tolerance 1e-3) finite={bool(np.isfinite(card).all())} "
-        f"card_ms={card_ms:.1f} (host clock, copies included) "
-        f"cpu_ms={cpu_ms:.1f}")
-    if not (np.isfinite(card).all() and err <= 1e-3):
-        raise AssertionError("pair-HMM on the card differs from the CPU")
-    cfg = preset("HIFI")
-    cfg = cfg.replace(phasing=dc.replace(cfg.phasing, use_pairhmm=True))
-    t0 = time.perf_counter()
-    on_card = process_region(region.reads, region.ref, 0, region.chrom, cfg)
-    secs = time.perf_counter() - t0
-    os.environ["FOCALSV_TORCH_DEVICE"] = "cpu"
+    log(f"[b6] forward pass of one haplotype, B=4000 L=29, by the host "
+        f"clock with copies included: {card_ms:.2f} ms")
+    return rows
+
+
+def pairhmm_cpu_run(args) -> None:
+    """Phase 9b's runs on the CPU (the plain version), in the subprocess
+    that the smoke run starts: the HiFi regions, then the noisy ones."""
+    hifi_bam, hifi_fa, hifi_bed, hifi_out, bam, fa, bed, out = args
+    run_mode(hifi_bam, hifi_fa, hifi_bed, hifi_out, "guided", "device",
+             N_PAIRHMM_CPU_REGIONS, pairhmm=True)
+    run_mode(bam, fa, bed, out, "guided", "device", N_NOISY_REGIONS,
+             dtype="ONT", pairhmm=True)
+
+
+@contextlib.contextmanager
+def plain_realignment():
+    """The yardstick of phase 9b: the realignment as it ran before B6, the
+    plain version's two calls a region (ref and alt windows) on the card."""
+    from focalsv_tpu_torch.ops import pairhmm
+    from focalsv_tpu_torch.phasing import realign
+
+    def two_calls(read_segs, seg_lens, ref_windows, window_lens_ref,
+                  alt_windows, window_lens_alt, quals=None):
+        return tuple(pairhmm.pairhmm_forward_batch_plain(
+            read_segs, seg_lens, hap, lens, quals,
+            max_read=read_segs.shape[1], max_hap=hap.shape[1],
+            device=DEVICE) for hap, lens in ((ref_windows, window_lens_ref),
+                                             (alt_windows, window_lens_alt)))
+
+    kernel = realign.site_allele_loglik
+    realign.site_allele_loglik = two_calls
     try:
-        on_cpu = process_region(region.reads, region.ref, 0, region.chrom,
-                                cfg)
+        yield
     finally:
-        del os.environ["FOCALSV_TORCH_DEVICE"]
-    same = (_record_keys(on_card) == _record_keys(on_cpu)
-            and np.array_equal(on_card.phase_hp, on_cpu.phase_hp))
-    log(f"[pairhmm] host-mode region of {len(region.ref)} bp with "
-        f"use_pairhmm=True: {secs:.2f} s, {on_card.n_phased}/"
-        f"{on_card.n_reads} reads phased, {len(on_card.records)} records, "
-        f"card == CPU {same}")
-    if not same or on_card.n_phased == 0:
-        raise AssertionError("use_pairhmm region on the card differs from "
-                             "the CPU")
+        realign.site_allele_loglik = kernel
+
+
+def pairhmm_slice(work: str, main_path: dict, noisy: dict) -> None:
+    """Phase 9b: run_target_mode with use_pairhmm=True in device execution
+    on the card, on phase 6's 32 HiFi regions (timed alone, B6's runs in
+    turns with one through the plain version on the card) and phase 6b's 8
+    noisy regions; the same runs on the CPU in a subprocess (the HiFi run
+    on the first 8 regions, which the card runs too): equal VCFs, B6
+    launched and the plain version never called on the card."""
+    d = f"{work}/pairhmm"
+    os.makedirs(d)
+    with open(main_path["bed"]) as f:
+        lines = f.read().splitlines()
+    bed8 = f"{d}/regions_{N_PAIRHMM_CPU_REGIONS}.bed"
+    with open(bed8, "w") as f:
+        f.write("".join(f"{ln}\n" for ln in lines[:N_PAIRHMM_CPU_REGIONS]))
+    n_all = len(lines)
+    reset_b6_counts()
+    full, full_stats, full_rec = run_mode(
+        main_path["bam"], main_path["fasta"], main_path["bed"],
+        f"{d}/hifi_card", "guided", "device", n_all, pairhmm=True)
+    record_b6_counts("pairhmm_target_mode_hifi")
+    with plain_realignment():
+        plain, plain_stats, _ = run_mode(
+            main_path["bam"], main_path["fasta"], main_path["bed"],
+            f"{d}/hifi_card_plain", "guided", "device", n_all, pairhmm=True)
+    reset_b6_counts()
+    again, again_stats, _ = run_mode(
+        main_path["bam"], main_path["fasta"], main_path["bed"],
+        f"{d}/hifi_card_again", "guided", "device", n_all, pairhmm=True)
+    record_b6_counts("pairhmm_target_mode_hifi_again")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--pairhmm-cpu",
+         main_path["bam"], main_path["fasta"], bed8, f"{d}/hifi_cpu",
+         noisy["bam"], noisy["fasta"], noisy["bed"], f"{d}/noisy_cpu"],
+        env=dict(os.environ, FOCALSV_TORCH_DEVICE="cpu",
+                 CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t0 = time.perf_counter()
+    try:
+        reset_b6_counts()
+        hifi, _, hifi_rec = run_mode(
+            main_path["bam"], main_path["fasta"], bed8, f"{d}/hifi8_card",
+            "guided", "device", N_PAIRHMM_CPU_REGIONS, pairhmm=True)
+        record_b6_counts("pairhmm_target_mode_hifi_8")
+        reset_b6_counts()
+        nz, nz_stats, nz_rec = run_mode(
+            noisy["bam"], noisy["fasta"], noisy["bed"], f"{d}/noisy_card",
+            "guided", "device", N_NOISY_REGIONS, dtype="ONT", pairhmm=True)
+        record_b6_counts("pairhmm_target_mode_noisy")
+    finally:
+        cpu_log = proc.communicate(timeout=900)[0]
+    cpu_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 9b's CPU run failed:\n"
+                             f"{cpu_log[-3000:]}")
+    with open(f"{d}/hifi_cpu/FocalSV_Final_SV.vcf") as f:
+        hifi_cpu = f.read()
+    with open(f"{d}/noisy_cpu/FocalSV_Final_SV.vcf") as f:
+        nz_cpu = f.read()
+    paths = list(B6_LAUNCHES)
+    windows = B6_WINDOWS["pairhmm_target_mode_hifi"] // 2
+    log(f"[pairhmm] HiFi use_pairhmm=True device on the card: "
+        f"{n_all / full_stats['wall_s']:.3f} regions/s ({n_all} regions, "
+        f"{full_rec} records, finish_s={full_stats['finish_s']:.3f} "
+        f"n_host_fallback={full_stats['n_host_fallback']}) beside phase 6's "
+        f"guided device run without the pair-HMM "
+        f"{main_path['guided_rps']:.3f} regions/s; {windows} read windows, "
+        f"{windows / n_all:.0f} a region, in "
+        f"{B6_LAUNCHES['pairhmm_target_mode_hifi']} launches of B6; noisy "
+        f"(ONT) {N_NOISY_REGIONS / nz_stats['wall_s']:.3f} regions/s "
+        f"({nz_rec} records, beside the CPU run)")
+    log(f"[pairhmm] HiFi use_pairhmm=True in turns: B6 "
+        f"{n_all / full_stats['wall_s']:.3f} regions/s finish_s="
+        f"{full_stats['finish_s']:.3f}; the plain version on the card (two "
+        f"calls a region, as before B6) {n_all / plain_stats['wall_s']:.3f} "
+        f"regions/s finish_s={plain_stats['finish_s']:.3f}, VCF equal to "
+        f"B6's: {plain == full}; B6 again "
+        f"{n_all / again_stats['wall_s']:.3f} regions/s finish_s="
+        f"{again_stats['finish_s']:.3f}, VCF equal: {again == full}")
+    log(f"[pairhmm] launches of B6 by path {json.dumps(B6_LAUNCHES)}, "
+        f"windows {json.dumps(B6_WINDOWS)}, calls of the plain version "
+        f"{json.dumps(B6_PLAIN_CALLS)}; the CPU runs (the HiFi run on the "
+        f"first {N_PAIRHMM_CPU_REGIONS} of the {n_all} regions, two of each "
+        f"size, to keep the plain version within the time limit; then the "
+        f"noisy run) ended {cpu_s:.1f} s after they were started")
+    checks = {
+        f"HiFi card VCF == CPU VCF ({N_PAIRHMM_CPU_REGIONS} regions)":
+            hifi == hifi_cpu,
+        "noisy card VCF == CPU VCF": nz == nz_cpu,
+        "records > 0": min(full_rec, hifi_rec, nz_rec) > 0,
+        "B6 launches > 0 on every path": all(B6_LAUNCHES[p] > 0
+                                             for p in paths),
+        "the plain version not called on the card": all(
+            B6_PLAIN_CALLS[p] == 0 for p in paths),
+    }
+    for name, ok in checks.items():
+        log(f"[pairhmm] check {name}: {ok}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"pair-HMM slice checks failed: {failed}")
 
 
 # -- phase 10 ---------------------------------------------------------------
@@ -1730,11 +1990,12 @@ def main() -> int:
     try:
         golden(work)
         main_path = slice_run(regions, work)
-        b3_noisy = noisy_slice(work)
+        b3_noisy, noisy_inputs = noisy_slice(work)
         mp_executor(regions, work, main_path["guided_rps"])
         complex_b1, complex_b4 = complex_svs(work, main_path["olc_out"],
                                              main_path["fasta"])
-        pairhmm_phase(regions[0])
+        b6 = pairhmm_phase()
+        pairhmm_slice(work, main_path, noisy_inputs)
         evaluation_phase(regions, work, main_path["guided_vcf"])
         mesh = multi_device(rng, jobs, main_path, work)
     finally:
@@ -1816,6 +2077,27 @@ def main() -> int:
                               for r in b3 + b3_noisy},
         "bound_ms_by_chunk": {r["case"]: r["bound_ms"]
                               for r in b3 + b3_noisy}})
+    for path in ("pairhmm_target_mode_hifi", "pairhmm_target_mode_noisy"):
+        if B6_LAUNCHES.get(path, 0) == 0:
+            raise AssertionError(f"B6 was not launched on the path {path}")
+    realign = next(r for r in b6 if r["case"] == "realign_B4000")
+    timed = [r for r in b6 if "ms" in r]
+    kernels.append({
+        "name": "pairhmm (B6)", "route": "cuda",
+        "source": "focalsv_tpu_torch/csrc/pairhmm.cu",
+        "replaces": "focalsv_tpu/ops/pairhmm.py:44",
+        "launches": sum(B6_LAUNCHES.values()),
+        "launches_by_path": dict(B6_LAUNCHES),
+        "max_abs_err": max(r["max_abs_err"] for r in b6),
+        "ms": realign["ms"], "queued_ms": realign["queued_ms"],
+        "plain_ms": realign["plain_ms"], "bound_ms": realign["bound_ms"],
+        "bound_by": realign["bound_by"],
+        # no single PyTorch call computes a pair-HMM forward pass
+        "library_ms": None,
+        "ms_by_case": {r["case"]: r["ms"] for r in timed},
+        "queued_ms_by_case": {r["case"]: r["queued_ms"] for r in timed},
+        "plain_ms_by_case": {r["case"]: r["plain_ms"] for r in timed},
+        "bound_ms_by_case": {r["case"]: r["bound_ms"] for r in timed}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1828,6 +2110,11 @@ if __name__ == "__main__":
         # phase 8's run on the CPU, started by the smoke run itself
         sys.path.insert(0, ROOT)
         complex_run(sys.argv[2], "cpu", sys.argv[3], sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) == 10 and sys.argv[1] == "--pairhmm-cpu":
+        # phase 9b's runs on the CPU, started by the smoke run itself
+        sys.path.insert(0, ROOT)
+        pairhmm_cpu_run(sys.argv[2:])
         sys.exit(0)
     if len(sys.argv) == 6 and sys.argv[1] == "--noisy-cpu":
         # phase 6b's run on the CPU, started by the smoke run itself

@@ -1,5 +1,6 @@
-// The part of the CUDA runtime that csrc/region_step.cu uses, for a build
-// of that source for the CPU with g++ (testing/host_kernel.py).  The threads
+// The part of the CUDA runtime that csrc/region_step.cu and csrc/pairhmm.cu
+// use, for a build of those sources for the CPU with g++
+// (testing/host_kernel.py).  The threads
 // of a CTA are POSIX threads and __syncthreads a barrier; warp shuffles and
 // ballots meet at a barrier of their warp; the CTAs of a cluster run
 // together, each with its dynamic shared memory, and map each other's;
@@ -106,6 +107,7 @@ inline int __syncthreads_or(int p) {
 }
 
 inline EmuWarp& emu_warp() { return emu_blk->warps[threadIdx.x >> 5]; }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp().bar.arrive_and_wait(); }
 template <class T>
 inline T emu_exchange(T v, int src) {
   EmuWarp& w = emu_warp();
@@ -147,6 +149,8 @@ inline unsigned __ballot_sync(unsigned, int p) {
   return r;
 }
 
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned s) {
   const unsigned long long x = ((unsigned long long)hi << 32) | lo;

@@ -1,7 +1,8 @@
-"""The CUDA source of kernels B2 and B3 built for the CPU, for tests.
+"""The CUDA sources of kernels B2, B3 and B6 built for the CPU, for tests.
 
-g++ compiles ``csrc/region_step.cu`` against ``testing/host_cuda/``, headers
-that stand in for the CUDA runtime and for cooperative_groups' cluster: the
+g++ compiles ``csrc/region_step.cu`` and ``csrc/pairhmm.cu`` against
+``testing/host_cuda/``, headers that stand in for the CUDA runtime and for
+cooperative_groups' cluster: the
 threads of a CTA are POSIX threads, ``__syncthreads`` a barrier, warp
 shuffles and ballots meet at a barrier of their warp, and the CTAs of a
 cluster run together and map each other's shared memory.  So the kernel's
@@ -13,9 +14,13 @@ compiler or memory model would do: the card tests still decide.
     from focalsv_tpu_torch.testing import host_kernel
     out = host_kernel.region_step(buf, **args, cluster=2)   # B2, a delta chunk
     out = host_kernel.region_rows(buf, **args, cluster=4)   # B3, a dense one
+    out, terms = host_kernel.pairhmm(reads, rl, [(haps, hl)], quals)  # B6
 
 The library lands in ``build/focalsv_tpu_torch/host/``, named by a hash of
-the sources; nothing is built when the module is imported.
+the sources; nothing is built when the module is imported.  The host
+library's expf and logf are glibc's, not the card's libdevice, so B6's
+results here agree with the plain version on the CPU to some ulps, not bit
+for bit.
 """
 
 from __future__ import annotations
@@ -29,8 +34,10 @@ import threading
 from pathlib import Path
 
 import numpy as np
+import torch
 
-from focalsv_tpu_torch.ops import _build
+from focalsv_tpu_torch.ops import _build, pairhmm_cuda
+from focalsv_tpu_torch.ops.pairhmm import kernel_inputs
 from focalsv_tpu_torch.ops.region_cuda import (KNOBS, MAX_CLUSTER,
                                                MAX_ROWS_CLUSTER,
                                                rows_scratch_words,
@@ -39,6 +46,7 @@ from focalsv_tpu_torch.parallel.wire import flat_layout, flat_layout_rle
 
 HEADERS = Path(__file__).resolve().parent / "host_cuda"
 SOURCE = _build.CSRC / "region_step.cu"
+PAIRHMM_SOURCE = _build.CSRC / "pairhmm.cu"
 FLAGS = ("-std=c++20", "-O2", "-fPIC", "-shared", "-fno-extern-tls-init",
          "-x", "c++")
 
@@ -46,25 +54,31 @@ _lock = threading.Lock()
 _libs: dict = {}
 
 
+def _compile(source: Path, defines: tuple = ()) -> ctypes.CDLL:
+    """``source`` built with these -D definitions (a library each); the
+    caller holds the lock."""
+    flags = FLAGS + tuple(f"-D{d}" for d in defines)
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for f in [source, *sorted(HEADERS.glob("*.h"))]:
+        digest.update(f.read_bytes())
+    out = _build.BUILD_DIR / "host"
+    so = out / f"lib{source.stem}_host_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        subprocess.run(["g++", *flags, f"-I{HEADERS}", str(source), "-o",
+                        str(tmp), "-lpthread"], check=True,
+                       capture_output=True, text=True)
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
+
+
 def _library(defines: tuple = ()):
-    """The source built with these -D definitions (a library each)."""
+    """B2's and B3's source built with these -D definitions."""
     with _lock:
         if defines in _libs:
             return _libs[defines]
-        flags = FLAGS + tuple(f"-D{d}" for d in defines)
-        digest = hashlib.sha256(" ".join(flags).encode())
-        for f in [SOURCE, *sorted(HEADERS.glob("*.h"))]:
-            digest.update(f.read_bytes())
-        out = _build.BUILD_DIR / "host"
-        so = out / f"libregion_step_host_{digest.hexdigest()[:16]}.so"
-        if not so.exists():
-            out.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            subprocess.run(["g++", *flags, f"-I{HEADERS}", str(SOURCE), "-o",
-                            str(tmp), "-lpthread"], check=True,
-                           capture_output=True, text=True)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        lib = _compile(SOURCE, defines)
         for name, n_ints in (("focalsv_region_step", 19),
                              ("focalsv_region_rows", 17)):
             fn = getattr(lib, name)
@@ -160,3 +174,43 @@ def rows_plan(*, G: int, R: int, L: int, W: int, max_sites: int,
                            f"{err}")
     return dict(cluster=plan[0], smem_bytes=plan[1],
                 planes_in_smem=bool(plan[2]), lists_in_smem=bool(plan[3]))
+
+
+def pairhmm(reads, read_lens, haps, quals=None, max_read: int | None = None,
+            gap_open: float = 1e-3, gap_extend: float = 0.1):
+    """B6 run on the CPU: log P(read | hap) (n_haps, B) float32 of the read
+    windows against each of ``haps`` (one or two (hap (B, N) uint8,
+    hap_len (B,)) pairs) in one launch, and the (B, M + N_h) per-diagonal
+    terms of each.  The inputs are prepared as for the card
+    (``ops/pairhmm.py::kernel_inputs``: the emissions from the plain
+    version's own torch ops).  Raises where the kernel refuses them."""
+    reads = np.asarray(reads)
+    B = reads.shape[0]
+    M = reads.shape[1] if max_read is None else int(max_read)
+    reads_t, rlen, lm_match, lm_mis, haps_t, gaps = kernel_inputs(
+        reads, read_lens, [(h, hl, np.asarray(h).shape[1]) for h, hl in haps],
+        quals, M, torch.device("cpu"), gap_open, gap_extend)
+    out = torch.full((len(haps), B), float("nan"))
+    terms = [torch.full((B, M + h.shape[1]), float("nan")) for h, _ in haps_t]
+    args = []
+    for h in range(2):
+        if h < len(haps_t):
+            hap, hl = haps_t[h]
+            args += [hap.data_ptr(), hl.data_ptr(), out[h].data_ptr(),
+                     terms[h].data_ptr(), hap.shape[1]]
+        else:
+            args += [None, None, None, None, 0]
+    with _lock:
+        if "pairhmm" not in _libs:
+            lib = _compile(PAIRHMM_SOURCE)
+            lib.focalsv_pairhmm.argtypes = pairhmm_cuda._ARGTYPES
+            lib.focalsv_pairhmm.restype = ctypes.c_int
+            _libs["pairhmm"] = lib
+        fn = _libs["pairhmm"].focalsv_pairhmm
+    err = fn(reads_t.data_ptr(), rlen.data_ptr(), lm_match.data_ptr(),
+             lm_mis.data_ptr(), *args, B, M, len(haps_t), *map(float, gaps),
+             None)
+    if err != 0:
+        raise RuntimeError(f"the pair-HMM kernel refused the batch: error "
+                           f"{err}")
+    return out.numpy(), [t.numpy() for t in terms]

@@ -2,7 +2,10 @@
 delta region step), B3 (the dense region step) and B4 (traceback) and the
 region step on CUDA against their plain versions, the mesh-sharded region
 step and DP against the unsharded ones, byte for byte (tolerance 0), and an
-NCCL group of one.
+NCCL group of one.  Kernel B6 (the pair-HMM forward pass) against its plain
+version on the card: the per-diagonal terms byte for byte, the results
+within 1e-5 absolute (the kernel sums the terms in another order than
+torch.sum), -inf at the same places.
 
 They skip without a CUDA device.  This file imports no jax, so that it runs
 on a machine without it:
@@ -16,7 +19,8 @@ import torch
 
 from focalsv_tpu_torch.ops import align as talign
 from focalsv_tpu_torch.ops import align_cuda
-from focalsv_tpu_torch.testing import dp_cases, region_cases
+from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
+from focalsv_tpu_torch.testing import dp_cases, pairhmm_cases, region_cases
 
 OLC_SCORING = dict(match=2, mismatch=-4, gap_open=-4, gap_extend=-2)
 ALIGNER_SCORING = dict(match=2, mismatch=-8, gap_open=-24, gap_extend=-2)
@@ -183,6 +187,59 @@ def test_pairhmm_on_card_matches_cpu(cuda):
                                            **kw)
     assert np.isfinite(on_cpu).all()
     np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(pairhmm_cases.CASES))
+def test_pairhmm_kernel_matches_plain_on_card(cuda, name):
+    case = pairhmm_cases.build(name)
+    before = pairhmm_cuda.launches
+    got = pairhmm_cases.kernel(case, cuda)
+    assert pairhmm_cuda.launches == before + 1
+    d = pairhmm_cases.differences(got, pairhmm_cases.plain(case, cuda))
+    assert d["terms_bytes_equal"] and d["same_inf"], d
+    assert d["out_err"] <= 1e-5, d
+
+
+@pytest.mark.cuda
+def test_site_allele_loglik_is_one_launch_on_card(cuda):
+    """Both haplotypes of a site in one launch of B6, against the plain
+    version's two calls; the plain version does not run."""
+    case = pairhmm_cases.build("realign")
+    (ref, rhl), (alt, ahl) = case["haps"]
+    before, plain_before = pairhmm_cuda.launches, pairhmm.plain_calls
+    got = pairhmm.site_allele_loglik(case["reads"], case["read_lens"], ref,
+                                     rhl, alt, ahl, case["quals"],
+                                     device=cuda)
+    assert pairhmm_cuda.launches == before + 1
+    assert pairhmm.plain_calls == plain_before
+    want, _ = pairhmm_cases.plain(case, cuda)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.isinf(g), np.isinf(w))
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_pairhmm_kernel_refuses_and_raises(cuda, monkeypatch):
+    """What B6 does not take raises, and so does a launch the card refuses;
+    nothing falls back to the plain version or counts a launch."""
+    before = pairhmm_cuda.launches
+    wide = pairhmm_cases.windows(0, 4, pairhmm_cuda.MAX_READ + 1, 29)
+    with pytest.raises(ValueError, match="read windows"):
+        pairhmm_cases.kernel(wide, cuda)
+    reads = torch.zeros((4, 29), dtype=torch.int32, device=cuda)
+    lens = torch.zeros(4, dtype=torch.int32, device=cuda)
+    lm = torch.zeros((4, 29), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError, match="reads"):
+        pairhmm_cuda.pairhmm_cuda(reads, lens, lm, lm,
+                                  [(reads.to(torch.uint8), lens)], [0.0] * 5)
+    monkeypatch.setattr(pairhmm_cuda, "_kernel", lambda: (lambda *a: 1))
+    plain_before = pairhmm.plain_calls
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pairhmm_cases.kernel(pairhmm_cases.build("realign"), cuda)
+    assert pairhmm_cuda.launches == before
+    assert pairhmm.plain_calls == plain_before
 
 
 @pytest.mark.cuda
