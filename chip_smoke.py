@@ -65,18 +65,23 @@ on the card in phases, and exits non-zero at the first phase that fails:
    have been launched;
 9. the pair-HMM realignment (use_pairhmm=True).  9a: B6 against its plain
    version on the card, on every case of the CPU tests
-   (testing/pairhmm_cases.py) and at the realignment's shapes (4,000 and
-   15,000 windows of 29 bases against the ref and the alt window, one
-   launch) and a wide one (reads of 48, windows of 64 and 40): the
-   per-diagonal terms byte for byte, the results within 1e-5 with -inf at
-   the same places; timed in turns, with the launches and copies of a call
-   of each (torch.profiler).  9b: run_target_mode with use_pairhmm=True in
+   (testing/pairhmm_cases.py) and at synthetic shapes (4,000 windows
+   padded to 29 bases against the ref and the alt window, one launch; a
+   stress size of 15,000; a wide one, reads of 48, windows of 64 and 40):
+   the per-diagonal terms byte for byte, the results within 1e-5 with -inf
+   at the same places; timed in turns, with the launches and copies of a
+   call of each (torch.profiler).  9b: run_target_mode with use_pairhmm=True in
    device mode on the card, on phase 6's 32 HiFi regions and phase 6b's 8
    noisy ones, and on the CPU (FOCALSV_TORCH_DEVICE=cpu, the plain version,
    in a subprocess; the HiFi run on the first 8 regions, two of each size,
    which the card runs too): equal VCFs, B6 launched on each path and the
    plain version never called on the card; regions/s beside phase 6's
-   guided run;
+   guided run.  9c: B6 on the path's own traffic, the inputs that the
+   realignment handed the kernel in 9b's HiFi run (one call a region,
+   recorded in the run through the plain version): each call held to the
+   plain version as in 9a and timed; the region of median windows is the
+   kernels line's headline, and the sum over the 32 calls is B6's card
+   time a run;
 10. evaluation.cli bench of phase 6's device VCF against the simulation's
    truth; prints F1;
 11. the multi-device and multi-process path on a mesh of every card present
@@ -106,8 +111,8 @@ kernel's bound_ms is the larger of its bytes (each input read once, each
 output written once) over the card's memory rate and its integer operations
 over the card's int32 rate (B6: its FP32 instructions over the FP32 rate),
 for this run's inputs.  A kernel's ms is the
-mean of calls issued back to back through its wrapper; B2 and B3 also
-report queued_ms, the same calls queued behind a sleep of the stream, which
+mean of calls issued back to back through its wrapper; each also reports
+queued_ms, the same calls queued behind a sleep of the stream, which
 leaves out the host's time to issue a call.  All data is simulated
 from fixed seeds; scratch files go under build/.
 """
@@ -306,6 +311,7 @@ def kernel_parity(rng, cases):
         s_k, d_k = kernel()
         sync()
         ms = time_ms(kernel, 3)
+        queued = time_ms(kernel, 3, queued=True)
         plain_ms = time_ms(plain, 1)
         s_p, d_p = plain()
         err = int((s_k.long() - s_p.long()).abs().max())
@@ -318,8 +324,8 @@ def kernel_parity(rng, cases):
                   + (B * Lq * W if store else 0))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = cells * B1_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
-        row = dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=max(t_bytes, t_ops),
+        row = dict(case=name, max_abs_err=err, ms=ms, queued_ms=queued,
+                   plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes > t_ops else "operations")
         extra = ""
         for b in also:               # the batches the main path sends
@@ -328,8 +334,8 @@ def kernel_parity(rng, cases):
             extra += f" kernel_ms_B{b}={row[f'ms_B{b}']:.3f}"
         log(f"[b1] {name}: B={B} Lq={Lq} W={W} dirs={store} "
             f"max_abs_err={err} in_band={finite}/{B} kernel_ms={ms:.3f}"
-            f"{extra} plain_ms={plain_ms:.1f} bound_ms={row['bound_ms']:.3f} "
-            f"bound_by={row['bound_by']}")
+            f" queued_ms={queued:.3f}{extra} plain_ms={plain_ms:.1f} "
+            f"bound_ms={row['bound_ms']:.3f} bound_by={row['bound_by']}")
         if err != 0:
             raise AssertionError(f"B1 differs from its plain version ({name})")
         if finite == 0:
@@ -357,6 +363,7 @@ def traceback_parity(name, dirs, scores, q_len, t_len, d_lo, W, Lq, n_plain):
     ops_k, n_k = kernel()
     sync()
     ms = time_ms(kernel, 3)
+    queued = time_ms(kernel, 3, queued=True)
     sub = [a[:n_plain].contiguous() for a in (dirs, q_len, t_len, d_lo)]
     t0 = time.perf_counter()
     ops_p, n_p = talign.traceback_device(*sub, W, Lq)
@@ -384,12 +391,13 @@ def traceback_parity(name, dirs, scores, q_len, t_len, d_lo, W, Lq, n_plain):
         f"(plain on {n_plain} pairs) host_cigar_equal={host_same} "
         f"(on {host_n} pairs) mean_ops={steps / B:.0f} "
         f"longest_walk_decisions={decisions} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.1f} bound_ms={max(t_bytes, t_ops):.5f}")
+        f"queued_ms={queued:.4f} plain_ms={plain_ms:.1f} "
+        f"bound_ms={max(t_bytes, t_ops):.5f}")
     if err != 0 or not host_same or host_n == 0:
         raise AssertionError(f"B4 differs from its plain version or from "
                              f"the host traceback ({name})")
-    return dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
+    return dict(case=name, max_abs_err=err, ms=ms, queued_ms=queued,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations")
 
 
@@ -1389,6 +1397,13 @@ def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
             entry_launches=profiled_launches(
                 lambda: pairhmm_cases.kernel(case, DEVICE), "pairhmm_kernel"),
             plain_launches=profiled_launches(plain))
+        lost = [k for k in ("entry_launches", "plain_launches")
+                if row[k] is None]
+        if lost:
+            row["launches_note"] = (
+                f"{' and '.join(lost)}: torch.profiler recorded no launch in "
+                f"{PROFILE_TRIES} tries; B6's own count shows one launch a "
+                f"call")
         timing = (f" kernel_ms={k1:.4f},{k2:.4f} queued_ms={queued:.4f} "
                   f"plain_ms={p1:.2f},{p2:.2f} bound_ms={bound:.4f} "
                   f"bound_by={by} share_of_bound={bound / queued:.3f} "
@@ -1440,14 +1455,23 @@ def pairhmm_cpu_run(args) -> None:
 
 
 @contextlib.contextmanager
-def plain_realignment():
+def plain_realignment(record: list):
     """The yardstick of phase 9b: the realignment as it ran before B6, the
-    plain version's two calls a region (ref and alt windows) on the card."""
+    plain version's two calls a region (ref and alt windows) on the card.
+    Each call's inputs go to ``record`` as a case of
+    testing/pairhmm_cases.py (phase 9c times B6 on them)."""
     from focalsv_tpu_torch.ops import pairhmm
     from focalsv_tpu_torch.phasing import realign
 
     def two_calls(read_segs, seg_lens, ref_windows, window_lens_ref,
                   alt_windows, window_lens_alt, quals=None):
+        record.append(dict(
+            reads=read_segs.copy(), read_lens=seg_lens.copy(),
+            quals=None if quals is None else quals.copy(),
+            haps=[(ref_windows.copy(), window_lens_ref.copy()),
+                  (alt_windows.copy(), window_lens_alt.copy())],
+            max_read=read_segs.shape[1],
+            gaps=dict(gap_open=1e-3, gap_extend=0.1)))
         return tuple(pairhmm.pairhmm_forward_batch_plain(
             read_segs, seg_lens, hap, lens, quals,
             max_read=read_segs.shape[1], max_hap=hap.shape[1],
@@ -1462,7 +1486,7 @@ def plain_realignment():
         realign.site_allele_loglik = kernel
 
 
-def pairhmm_slice(work: str, main_path: dict, noisy: dict) -> None:
+def pairhmm_slice(work: str, main_path: dict, noisy: dict) -> list:
     """Phase 9b: run_target_mode with use_pairhmm=True in device execution
     on the card, on phase 6's 32 HiFi regions (timed alone, B6's runs in
     turns with one through the plain version on the card) and phase 6b's 8
@@ -1482,7 +1506,8 @@ def pairhmm_slice(work: str, main_path: dict, noisy: dict) -> None:
         main_path["bam"], main_path["fasta"], main_path["bed"],
         f"{d}/hifi_card", "guided", "device", n_all, pairhmm=True)
     record_b6_counts("pairhmm_target_mode_hifi")
-    with plain_realignment():
+    traffic: list = []
+    with plain_realignment(traffic):
         plain, plain_stats, _ = run_mode(
             main_path["bam"], main_path["fasta"], main_path["bed"],
             f"{d}/hifi_card_plain", "guided", "device", n_all, pairhmm=True)
@@ -1561,6 +1586,98 @@ def pairhmm_slice(work: str, main_path: dict, noisy: dict) -> None:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"pair-HMM slice checks failed: {failed}")
+    if len(traffic) != B6_LAUNCHES["pairhmm_target_mode_hifi"]:
+        raise AssertionError(f"the plain run made {len(traffic)} calls, B6's "
+                             f"run {B6_LAUNCHES['pairhmm_target_mode_hifi']}")
+    return traffic
+
+
+def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
+    """Phase 9c: B6 on the inputs that the realignment handed it in 9b's
+    HiFi run, one call a region.  Each call is held to the plain version as
+    in 9a (terms byte for byte, results within 1e-5, -inf at the same
+    places, one launch) and timed: its launch back to back and queued
+    behind a sleep of the stream (20 calls each), and the entry from the
+    numpy inputs (site_allele_loglik: copy in, emissions, B6, copy out; 5
+    calls, CUDA events, the host's time inside).  The region of median
+    windows is also timed as 9a times its shapes: the kernels line's
+    headline.  Returns its row and a summary of the run's calls."""
+    from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
+    from focalsv_tpu_torch.testing import pairhmm_cases
+    sizes = [len(c["read_lens"]) for c in traffic]
+    median = sorted(range(len(traffic)), key=sizes.__getitem__)[
+        len(traffic) // 2]
+    head = b6_against_plain("path_median_region", traffic[median], True)
+    calls = []
+    for k, case in enumerate(traffic):
+        before = pairhmm_cuda.launches
+        got = pairhmm_cases.kernel(case, DEVICE)
+        one_launch = pairhmm_cuda.launches == before + 1
+        d = pairhmm_cases.differences(got, pairhmm_cases.plain(case, DEVICE))
+        if not (d["terms_bytes_equal"] and d["same_inf"]
+                and d["out_err"] <= 1e-5 and one_launch):
+            raise AssertionError(f"B6 differs from its plain version on the "
+                                 f"path's call {k}: {d}")
+        (ref, rhl), (alt, ahl) = case["haps"]
+        args = pairhmm.kernel_inputs(
+            case["reads"], case["read_lens"],
+            [(hap, hl, hap.shape[1]) for hap, hl in case["haps"]],
+            case["quals"], case["max_read"], DEVICE, **case["gaps"])
+
+        def launch():
+            return pairhmm_cuda.pairhmm_cuda(*args)
+
+        def entry():
+            return pairhmm.site_allele_loglik(
+                case["reads"], case["read_lens"], ref, rhl, alt, ahl,
+                case["quals"], device=DEVICE)
+
+        launch()
+        calls.append(dict(
+            B=sizes[k], err=d["out_err"], ms=time_ms(launch, 20),
+            queued_ms=time_ms(launch, 20, queued=True),
+            entry_ms=time_ms(entry, 5), bound_ms=b6_bound(case)[0]))
+    reads = np.concatenate([c["read_lens"] for c in traffic])
+    wins = np.concatenate([hl for c in traffic for _h, hl in c["haps"][:1]])
+    largest = max(calls, key=lambda c: c["B"])
+
+    def spread(key):
+        v = sorted(c[key] for c in calls)
+        return dict(min=v[0], median=v[len(v) // 2], max=v[-1])
+
+    summary = dict(
+        regions=len(calls), windows_a_region=dict(
+            mean=float(np.mean(sizes)), **spread("B")),
+        read_lens=dict(zip(*map(np.ndarray.tolist,
+                                np.unique(reads, return_counts=True)))),
+        window_lens=dict(zip(*map(np.ndarray.tolist,
+                                  np.unique(wins, return_counts=True)))),
+        launch_ms=spread("ms"), queued_ms=spread("queued_ms"),
+        entry_ms=spread("entry_ms"), bound_ms=spread("bound_ms"),
+        largest_region=largest,
+        # B6's card time for the run's calls, and the entries' time
+        card_ms_a_run=sum(c["queued_ms"] for c in calls),
+        back_to_back_ms_a_run=sum(c["ms"] for c in calls),
+        entry_ms_a_run=sum(c["entry_ms"] for c in calls),
+        bound_ms_a_run=sum(c["bound_ms"] for c in calls))
+    log(f"[b6-path] 9b's HiFi run handed B6 {len(calls)} calls, windows a "
+        f"call {json.dumps(summary['windows_a_region'])}; read lengths "
+        f"(bases: windows) {json.dumps(summary['read_lens'])}, window "
+        f"lengths {json.dumps(summary['window_lens'])}; all held to the "
+        f"plain version (terms byte for byte, max_abs_err "
+        f"{max(c['err'] for c in calls):.3g})")
+    log(f"[b6-path] a launch, ms back to back "
+        f"{json.dumps(summary['launch_ms'])}, queued "
+        f"{json.dumps(summary['queued_ms'])}, bound "
+        f"{json.dumps(summary['bound_ms'])}; the entry from numpy "
+        f"(copies and emissions, CUDA events) "
+        f"{json.dumps(summary['entry_ms'])}; the largest call "
+        f"{json.dumps(largest)}; over the run's {len(calls)} calls: B6 "
+        f"{summary['card_ms_a_run']:.4f} ms queued, "
+        f"{summary['back_to_back_ms_a_run']:.4f} back to back, bound "
+        f"{summary['bound_ms_a_run']:.4f}, entries "
+        f"{summary['entry_ms_a_run']:.3f} ms")
+    return [head], summary
 
 
 # -- phase 10 ---------------------------------------------------------------
@@ -1995,7 +2112,9 @@ def main() -> int:
         complex_b1, complex_b4 = complex_svs(work, main_path["olc_out"],
                                              main_path["fasta"])
         b6 = pairhmm_phase()
-        pairhmm_slice(work, main_path, noisy_inputs)
+        traffic = pairhmm_slice(work, main_path, noisy_inputs)
+        path_rows, b6_path = b6_on_path_traffic(traffic)
+        b6 += path_rows
         evaluation_phase(regions, work, main_path["guided_vcf"])
         mesh = multi_device(rng, jobs, main_path, work)
     finally:
@@ -2024,7 +2143,8 @@ def main() -> int:
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": polish["ms"], "plain_ms": polish["plain_ms"],
+            "ms": polish["ms"], "queued_ms": polish["queued_ms"],
+            "plain_ms": polish["plain_ms"],
             "bound_ms": polish["bound_ms"], "bound_by": polish["bound_by"],
             # no single PyTorch call computes a banded affine-gap DP or
             # walks its direction bytes
@@ -2080,7 +2200,7 @@ def main() -> int:
     for path in ("pairhmm_target_mode_hifi", "pairhmm_target_mode_noisy"):
         if B6_LAUNCHES.get(path, 0) == 0:
             raise AssertionError(f"B6 was not launched on the path {path}")
-    realign = next(r for r in b6 if r["case"] == "realign_B4000")
+    head = next(r for r in b6 if r["case"] == "path_median_region")
     timed = [r for r in b6 if "ms" in r]
     kernels.append({
         "name": "pairhmm (B6)", "route": "cuda",
@@ -2089,11 +2209,19 @@ def main() -> int:
         "launches": sum(B6_LAUNCHES.values()),
         "launches_by_path": dict(B6_LAUNCHES),
         "max_abs_err": max(r["max_abs_err"] for r in b6),
-        "ms": realign["ms"], "queued_ms": realign["queued_ms"],
-        "plain_ms": realign["plain_ms"], "bound_ms": realign["bound_ms"],
-        "bound_by": realign["bound_by"],
+        # the headline: the HiFi run's region of median windows (9c)
+        "ms": head["ms"], "queued_ms": head["queued_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
         # no single PyTorch call computes a pair-HMM forward pass
         "library_ms": None,
+        "headline_windows": head["B"],
+        "path": b6_path,
+        # torch.profiler's launches and copies of one call (None and a
+        # cause where it recorded none)
+        "launches_a_call": {r["case"]: {
+            k: r[k] for k in ("entry_launches", "plain_launches",
+                              "launches_note") if k in r} for r in timed},
         "ms_by_case": {r["case"]: r["ms"] for r in timed},
         "queued_ms_by_case": {r["case"]: r["queued_ms"] for r in timed},
         "plain_ms_by_case": {r["case"]: r["plain_ms"] for r in timed},

@@ -52,8 +52,10 @@
 // fmaxf(its term, LOG0)).  At the end the warp reduces the terms to the
 // result and copies them out when the caller asks for them.
 //
-// Limits: 1 <= max_read <= 32 * MAX_GROUPS - 1 = 255; the terms and the
-// window of a block's four warps must fit the card's shared memory.
+// Limits: 1 <= max_read <= 32 * MAX_GROUPS - 1 = 127 (four groups, the
+// most that the tests hold to the plain version; the realignment takes
+// 29); the terms and the window of a block's four warps must fit the
+// card's shared memory.
 
 #include <cstddef>
 #include <cstdint>
@@ -64,7 +66,7 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int kWarps = 4;          // warps (pairs) a block
-constexpr int MAX_GROUPS = 8;      // groups of 32 read rows a lane
+constexpr int MAX_GROUPS = 4;      // groups of 32 read rows a lane
 constexpr float LOG0 = -1e30f;
 constexpr float HALF_LOG0 = LOG0 * 0.5f;   // the plain version's LOG0 / 2
 
@@ -285,10 +287,6 @@ extern "C" int focalsv_pairhmm(
     case 1: return launch<1>(p, smem, s);
     case 2: return launch<2>(p, smem, s);
     case 3: return launch<3>(p, smem, s);
-    case 4: return launch<4>(p, smem, s);
-    case 5: return launch<5>(p, smem, s);
-    case 6: return launch<6>(p, smem, s);
-    case 7: return launch<7>(p, smem, s);
-    default: return launch<8>(p, smem, s);
+    default: return launch<4>(p, smem, s);
   }
 }

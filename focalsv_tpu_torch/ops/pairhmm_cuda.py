@@ -19,8 +19,9 @@ import torch
 
 from focalsv_tpu_torch.ops import _build
 
-# the widest read window B6 takes (8 groups of 32 rows a lane)
-MAX_READ = 255
+# the widest read window B6 takes (4 groups of 32 rows a lane): the
+# kernel's focalsv_pairhmm_max_read()
+MAX_READ = 127
 
 _lock = threading.Lock()
 _fn = None

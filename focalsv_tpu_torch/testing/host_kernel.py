@@ -200,17 +200,27 @@ def pairhmm(reads, read_lens, haps, quals=None, max_read: int | None = None,
                      terms[h].data_ptr(), hap.shape[1]]
         else:
             args += [None, None, None, None, 0]
+    err = _pairhmm_lib().focalsv_pairhmm(
+        reads_t.data_ptr(), rlen.data_ptr(), lm_match.data_ptr(),
+        lm_mis.data_ptr(), *args, B, M, len(haps_t), *map(float, gaps), None)
+    if err != 0:
+        raise RuntimeError(f"the pair-HMM kernel refused the batch: error "
+                           f"{err}")
+    return out.numpy(), [t.numpy() for t in terms]
+
+
+def pairhmm_max_read() -> int:
+    """The widest read window B6's source takes (its
+    ``focalsv_pairhmm_max_read``)."""
+    return int(_pairhmm_lib().focalsv_pairhmm_max_read())
+
+
+def _pairhmm_lib() -> ctypes.CDLL:
     with _lock:
         if "pairhmm" not in _libs:
             lib = _compile(PAIRHMM_SOURCE)
             lib.focalsv_pairhmm.argtypes = pairhmm_cuda._ARGTYPES
             lib.focalsv_pairhmm.restype = ctypes.c_int
+            lib.focalsv_pairhmm_max_read.restype = ctypes.c_int
             _libs["pairhmm"] = lib
-        fn = _libs["pairhmm"].focalsv_pairhmm
-    err = fn(reads_t.data_ptr(), rlen.data_ptr(), lm_match.data_ptr(),
-             lm_mis.data_ptr(), *args, B, M, len(haps_t), *map(float, gaps),
-             None)
-    if err != 0:
-        raise RuntimeError(f"the pair-HMM kernel refused the batch: error "
-                           f"{err}")
-    return out.numpy(), [t.numpy() for t in terms]
+        return _libs["pairhmm"]

@@ -117,7 +117,11 @@ def _gaps(seed: int) -> dict:
 CASES = {
     "realign": lambda s: windows(s, 24, 29, 29),
     "wide_48x64": lambda s: _widen(windows(s, 12, 48, 64)),
+    # 96 rows: three full groups of 32
+    "wide_95x96": lambda s: windows(s, 8, 95, 96),
     "wide_100x120": lambda s: windows(s, 8, 100, 120),
+    # the widest read window B6 takes (ops/pairhmm_cuda.py::MAX_READ)
+    "wide_127x140": lambda s: windows(s, 6, 127, 140),
     "read_lens": _read_lens,
     "short_haps": _short_haps,
     "codes_no_quals": _codes,
@@ -138,11 +142,14 @@ def build(name: str, seed: int = 0) -> dict:
     return CASES[name](seed)
 
 
-# chip_smoke.py phase 9's shapes on the card: the realignment's (windows of
-# 29 bases, 4,000 of them, and a 100 kb region's 15,000) and a wide one
+# chip_smoke.py phase 9a's synthetic shapes on the card (lengths random as
+# ``windows`` makes them): 4,000 windows padded to 29 bases as the
+# realignment pads them; 15,000, a stress size that no measured region
+# reaches; a wide one.  The path's own traffic is timed from the inputs
+# that the realignment hands the kernel (phase 9c).
 CARD_SHAPES = {
     "realign_B4000": lambda s: windows(s, 4000, 29, 29),
-    "region_B15000": lambda s: windows(s, 15000, 29, 29),
+    "stress_B15000": lambda s: windows(s, 15000, 29, 29),
     "wide_48x64_B4000": lambda s: _widen(windows(s, 4000, 48, 64)),
 }
 

@@ -98,6 +98,18 @@ def test_cpu_path_runs_the_plain_version():
     np.testing.assert_array_equal(la, want[1])
 
 
+def test_kernel_source_takes_reads_up_to_max_read():
+    """B6's source takes read windows up to the wrapper's MAX_READ (the
+    widest case above) and refuses one base more."""
+    from focalsv_tpu_torch.testing import host_kernel
+    assert host_kernel.pairhmm_max_read() == pairhmm_cuda.MAX_READ
+    assert max(pairhmm_cases.build(n)["max_read"]
+               for n in pairhmm_cases.CASES) == pairhmm_cuda.MAX_READ
+    wide = pairhmm_cases.windows(0, 4, pairhmm_cuda.MAX_READ + 1, 29)
+    with pytest.raises(RuntimeError, match="refused"):
+        pairhmm_cases.host(wide)
+
+
 def test_wrapper_refuses_cpu_tensors():
     """B6's wrapper launches for CUDA tensors only; it never falls back."""
     B, M = 4, 29
