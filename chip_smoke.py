@@ -63,14 +63,17 @@ on the card in phases, and exits non-zero at the first phase that fails:
    and B4; the VCFs must equal those of the same run on the CPU
    (FOCALSV_TORCH_DEVICE=cpu, in a subprocess), and both kernels must
    have been launched;
-9. the pair-HMM realignment (use_pairhmm=True).  9a: B6 against its plain
-   version on the card, on every case of the CPU tests
-   (testing/pairhmm_cases.py) and at synthetic shapes (4,000 windows
-   padded to 29 bases against the ref and the alt window, one launch; a
-   stress size of 15,000; a wide one, reads of 48, windows of 64 and 40):
-   the per-diagonal terms byte for byte, the results within 1e-5 with -inf
-   at the same places; timed in turns, with the launches and copies of a
-   call of each (torch.profiler).  9b: run_target_mode with use_pairhmm=True in
+9. the pair-HMM realignment (use_pairhmm=True).  9a: B6's emission table
+   against the plain version's elementwise emissions on the card, byte for
+   byte; B6 against its plain version on the card, on every case of the
+   CPU tests (testing/pairhmm_cases.py: reads past 128 bases, several
+   pairs a warp, workspaces in device scratch) and at synthetic shapes
+   (4,000 windows padded to 29 bases against the ref and the alt window,
+   one launch; a stress size of 15,000; a wide one, reads of 48, windows
+   of 64 and 40): the per-diagonal terms byte for byte, the results within
+   1e-5 with -inf at the same places; timed in turns, with the launches
+   and copies of a call of each (torch.profiler; B6's entry is 3: copy
+   in, B6, copy out).  9b: run_target_mode with use_pairhmm=True in
    device mode on the card, on phase 6's 32 HiFi regions and phase 6b's 8
    noisy ones, and on the CPU (FOCALSV_TORCH_DEVICE=cpu, the plain version,
    in a subprocess; the HiFi run on the first 8 regions, two of each size,
@@ -79,9 +82,10 @@ on the card in phases, and exits non-zero at the first phase that fails:
    guided run.  9c: B6 on the path's own traffic, the inputs that the
    realignment handed the kernel in 9b's HiFi run (one call a region,
    recorded in the run through the plain version): each call held to the
-   plain version as in 9a and timed; the region of median windows is the
-   kernels line's headline, and the sum over the 32 calls is B6's card
-   time a run;
+   plain version as in 9a and timed, also with 1, 2 and 4 pairs a warp
+   beside the wrapper's choice; the region of median windows is the
+   kernels line's headline (with its lane-steps a pair, and those of
+   a warp a pair), and the sum over the 32 calls is B6's card time a run;
 10. evaluation.cli bench of phase 6's device VCF against the simulation's
    truth; prints F1;
 11. the multi-device and multi-process path on a mesh of every card present
@@ -123,7 +127,6 @@ import contextlib
 import dataclasses
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -265,7 +268,6 @@ def build_kernels() -> None:
     for line in _build.build_log.splitlines():
         if "Compiling entry" in line:
             # the kernel's name out of its mangled symbol
-            group = re.search(r"pairhmm_kernelILi(\d)E", line)
             name = next(
                 (name for k, name in (
                     ("banded_align_reg_kernelILi4E", "B1 registers, 4 cells"),
@@ -275,10 +277,10 @@ def build_kernels() -> None:
                     ("banded_align_wide_kernel", "B1 wide band"),
                     ("traceback_kernel", "B4"),
                     ("region_step_kernelINS_8DeltaSrc", "B2"),
-                    ("region_step_kernelINS_7RowsSrc", "B3"))
+                    ("region_step_kernelINS_7RowsSrc", "B3"),
+                    ("pairhmm_kernel", "B6"))
                  if k in line), line)
-            line = "kernel " + (f"B6, {group[1]} groups of 32 rows"
-                                if group else name)
+            line = f"kernel {name}"
         elif not ("registers" in line or "spill" in line):
             continue
         log(f"[build] {line.strip()}")
@@ -1289,6 +1291,9 @@ FP32_INSTR_PER_S = 67e12 / 2
 # phase 9b's HiFi run on the CPU takes the first 8 of phase 6's 32 regions
 # (two of each size): the plain version there is the time limit's concern
 N_PAIRHMM_CPU_REGIONS = 8
+# (read, window) pairs a warp of B6 that phase 9c times on the path's
+# calls beside the wrapper's choice
+PAIRS_A_WARP = (1, 2, 4)
 # kernel B6's launches, the windows they computed and the plain version's
 # calls on each path that runs the pair-HMM, each read from its count, set
 # to 0 just before the path
@@ -1355,6 +1360,16 @@ def profiled_launches(fn, must_show: str | None = None) -> int | None:
     return None
 
 
+def b6_entry(case: dict):
+    """B6's entry from the numpy inputs as the realignment calls it
+    (site_allele_loglik: copy in, B6, copy out)."""
+    from focalsv_tpu_torch.ops import pairhmm
+    (ref, rhl), (alt, ahl) = case["haps"]
+    return pairhmm.site_allele_loglik(
+        case["reads"], case["read_lens"], ref, rhl, alt, ahl, case["quals"],
+        device=DEVICE, **case["gaps"])
+
+
 def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
     """B6 against its plain version on the card, both from the same numpy
     inputs: the terms byte for byte, the results within 1e-5 (B6 sums the
@@ -1362,8 +1377,9 @@ def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
     ``timed``: ms of the wrapper's calls on the inputs already on the card
     (back to back, and queued behind a sleep of the stream), of the plain
     version's calls (a call a haplotype, from the numpy inputs), in turns;
-    the bound; the launches and copies of one call of each (the kernel's
-    entry from the numpy inputs: copy in, emissions, B6, copy out)."""
+    the bound; the launches and copies of one call of each (B6's entry
+    from the numpy inputs, b6_entry: copy in, B6, copy out; 3 unless
+    torch.profiler lost the record)."""
     from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
     from focalsv_tpu_torch.testing import pairhmm_cases
     before = pairhmm_cuda.launches
@@ -1394,8 +1410,9 @@ def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
         row.update(
             ms=(k1 + k2) / 2, queued_ms=queued, plain_ms=(p1 + p2) / 2,
             bound_ms=bound, bound_by=by,
-            entry_launches=profiled_launches(
-                lambda: pairhmm_cases.kernel(case, DEVICE), "pairhmm_kernel"),
+            pairs_per_warp=pairhmm_cuda.choose_pairs_per_warp(row["B"]),
+            entry_launches=profiled_launches(lambda: b6_entry(case),
+                                             "pairhmm_kernel"),
             plain_launches=profiled_launches(plain))
         lost = [k for k in ("entry_launches", "plain_launches")
                 if row[k] is None]
@@ -1404,10 +1421,15 @@ def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
                 f"{' and '.join(lost)}: torch.profiler recorded no launch in "
                 f"{PROFILE_TRIES} tries; B6's own count shows one launch a "
                 f"call")
+        elif row["entry_launches"] < 3:
+            row["launches_note"] = (
+                "torch.profiler cut the entry's record (3: copy in, B6, "
+                "copy out)")
         timing = (f" kernel_ms={k1:.4f},{k2:.4f} queued_ms={queued:.4f} "
                   f"plain_ms={p1:.2f},{p2:.2f} bound_ms={bound:.4f} "
                   f"bound_by={by} share_of_bound={bound / queued:.3f} "
-                  f"(queued) launches and copies a call (torch.profiler; "
+                  f"(queued) pairs a warp {row['pairs_per_warp']}; "
+                  f"launches and copies a call (torch.profiler; "
                   f"None: not recorded): B6's entry "
                   f"{row['entry_launches']}, plain "
                   f"{row['plain_launches']}")
@@ -1418,15 +1440,43 @@ def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
     if not (d["terms_bytes_equal"] and d["same_inf"]
             and d["out_err"] <= 1e-5 and one_launch):
         raise AssertionError(f"B6 differs from its plain version ({name})")
+    # the profiler may lose or cut a record, never add one
+    if (row.get("entry_launches") or 0) > 3:
+        raise AssertionError(f"B6's entry took {row['entry_launches']} "
+                             f"launches and copies, more than 3 ({name})")
     return row
+
+
+def emission_table_check() -> None:
+    """B6's emission table on the card, indexed by the clamped quality,
+    against the plain version's elementwise emissions on the card, byte for
+    byte, for every int32 quality in [-50, 400)."""
+    from focalsv_tpu_torch.ops import pairhmm
+    rng = np.random.default_rng(4)
+    q = rng.integers(-50, 400, (997, 29)).astype(np.int32)
+    q.ravel()[: 450] = np.arange(-50, 400)
+    lm_match, lm_mis = pairhmm._emissions(q, *q.shape, DEVICE)
+    table = pairhmm.emission_table(DEVICE)
+    idx = torch.from_numpy(pairhmm.qual_bytes(q, *q.shape).astype(
+        np.int64)).to(DEVICE)
+    same = (torch.equal(table[0][idx], lm_match)
+            and torch.equal(table[1][idx], lm_mis))
+    log(f"[b6] emission table (2, 256) against the elementwise emissions "
+        f"on the card, qualities -50..399 on a (997, 29) array: byte-equal "
+        f"{same}")
+    if not same:
+        raise AssertionError("B6's emission table differs from the "
+                             "elementwise emissions on the card")
 
 
 def pairhmm_phase() -> list[dict]:
     """Phase 9a: B6 against its plain version on the card, on every case of
-    the CPU tests and at phase 9's shapes (timed); the forward pass of one
-    haplotype by the host clock, copies included, as PR 8 took it."""
+    the CPU tests and at phase 9's shapes (timed); the emission table
+    against the elementwise emissions; the forward pass of one haplotype
+    by the host clock, copies included."""
     from focalsv_tpu_torch.ops import pairhmm
     from focalsv_tpu_torch.testing import pairhmm_cases
+    emission_table_check()
     rows = [b6_against_plain(name, pairhmm_cases.build(name), False)
             for name in sorted(pairhmm_cases.CASES)]
     rows += [b6_against_plain(name, build(9), True)
@@ -1592,16 +1642,43 @@ def pairhmm_slice(work: str, main_path: dict, noisy: dict) -> list:
     return traffic
 
 
+def b6_lane_steps(case: dict, pairs_per_warp: int) -> dict:
+    """Lane-steps a pair of this call: B6's (pairhmm_cases.lane_steps, at
+    ``pairs_per_warp``), the earlier design's (a warp a pair, every lane
+    of each group of 32 rows a read_len reaches over the read_len +
+    hap_len diagonals) and the cells the data needs."""
+    from focalsv_tpu_torch.testing import pairhmm_cases
+    M = case["max_read"]
+    rl = case["read_lens"].astype(np.int64)
+    hls = [hl.astype(np.int64) for _, hl in case["haps"]]
+    widths = [hap.shape[1] for hap, _ in case["haps"]]
+    pairs = len(rl) * len(hls)
+    before = 0
+    cells = 0
+    for hl, n in zip(hls, widths):
+        last_row = np.minimum(rl, M)
+        groups = np.where(last_row < 0, 0, last_row // 32 + 1)
+        diags = np.where(last_row < 0, 0,
+                         np.minimum(M + n, np.maximum(0, last_row + hl)))
+        before += int((32 * groups * diags).sum())
+        ok = (rl >= 1) & (rl <= M)
+        cells += int((np.where(ok, rl, 0) * np.clip(hl, 0, n)).sum())
+    this = pairhmm_cases.lane_steps(rl, hls, M, widths, pairs_per_warp)
+    return dict(this=this / pairs, before=before / pairs,
+                cells=cells / pairs, pairs_per_warp=pairs_per_warp)
+
+
 def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
     """Phase 9c: B6 on the inputs that the realignment handed it in 9b's
     HiFi run, one call a region.  Each call is held to the plain version as
     in 9a (terms byte for byte, results within 1e-5, -inf at the same
     places, one launch) and timed: its launch back to back and queued
-    behind a sleep of the stream (20 calls each), and the entry from the
-    numpy inputs (site_allele_loglik: copy in, emissions, B6, copy out; 5
-    calls, CUDA events, the host's time inside).  The region of median
-    windows is also timed as 9a times its shapes: the kernels line's
-    headline.  Returns its row and a summary of the run's calls."""
+    behind a sleep of the stream (20 calls each), queued again with each
+    of PAIRS_A_WARP pairs a warp, and the entry from the numpy inputs
+    (site_allele_loglik: copy in, B6, copy out; 5 calls, CUDA events, the
+    host's time inside).  The region of median windows is also timed as 9a
+    times its shapes: the kernels line's headline.  Returns its row and a
+    summary of the run's calls."""
     from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
     from focalsv_tpu_torch.testing import pairhmm_cases
     sizes = [len(c["read_lens"]) for c in traffic]
@@ -1618,25 +1695,23 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
                 and d["out_err"] <= 1e-5 and one_launch):
             raise AssertionError(f"B6 differs from its plain version on the "
                                  f"path's call {k}: {d}")
-        (ref, rhl), (alt, ahl) = case["haps"]
         args = pairhmm.kernel_inputs(
             case["reads"], case["read_lens"],
             [(hap, hl, hap.shape[1]) for hap, hl in case["haps"]],
             case["quals"], case["max_read"], DEVICE, **case["gaps"])
 
-        def launch():
-            return pairhmm_cuda.pairhmm_cuda(*args)
-
-        def entry():
-            return pairhmm.site_allele_loglik(
-                case["reads"], case["read_lens"], ref, rhl, alt, ahl,
-                case["quals"], device=DEVICE)
+        def launch(K=None):
+            return pairhmm_cuda.pairhmm_cuda(*args, pairs_per_warp=K)
 
         launch()
         calls.append(dict(
             B=sizes[k], err=d["out_err"], ms=time_ms(launch, 20),
             queued_ms=time_ms(launch, 20, queued=True),
-            entry_ms=time_ms(entry, 5), bound_ms=b6_bound(case)[0]))
+            queued_ms_by_pairs_a_warp={
+                K: time_ms(lambda: launch(K), 20, queued=True)
+                for K in PAIRS_A_WARP},
+            entry_ms=time_ms(lambda: b6_entry(case), 5),
+            bound_ms=b6_bound(case)[0]))
     reads = np.concatenate([c["read_lens"] for c in traffic])
     wins = np.concatenate([hl for c in traffic for _h, hl in c["haps"][:1]])
     largest = max(calls, key=lambda c: c["B"])
@@ -1645,6 +1720,8 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
         v = sorted(c[key] for c in calls)
         return dict(min=v[0], median=v[len(v) // 2], max=v[-1])
 
+    lanes = b6_lane_steps(traffic[median],
+                          pairhmm_cuda.choose_pairs_per_warp(sizes[median]))
     summary = dict(
         regions=len(calls), windows_a_region=dict(
             mean=float(np.mean(sizes)), **spread("B")),
@@ -1659,7 +1736,14 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
         card_ms_a_run=sum(c["queued_ms"] for c in calls),
         back_to_back_ms_a_run=sum(c["ms"] for c in calls),
         entry_ms_a_run=sum(c["entry_ms"] for c in calls),
-        bound_ms_a_run=sum(c["bound_ms"] for c in calls))
+        bound_ms_a_run=sum(c["bound_ms"] for c in calls),
+        # the pairs a warp: the wrapper's choice against fixed ones, queued
+        card_ms_a_run_by_pairs_a_warp={
+            K: sum(c["queued_ms_by_pairs_a_warp"][K] for c in calls)
+            for K in PAIRS_A_WARP},
+        median_queued_ms_by_pairs_a_warp=calls[median][
+            "queued_ms_by_pairs_a_warp"],
+        lane_steps_a_pair=lanes)
     log(f"[b6-path] 9b's HiFi run handed B6 {len(calls)} calls, windows a "
         f"call {json.dumps(summary['windows_a_region'])}; read lengths "
         f"(bases: windows) {json.dumps(summary['read_lens'])}, window "
@@ -1670,13 +1754,19 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
         f"{json.dumps(summary['launch_ms'])}, queued "
         f"{json.dumps(summary['queued_ms'])}, bound "
         f"{json.dumps(summary['bound_ms'])}; the entry from numpy "
-        f"(copies and emissions, CUDA events) "
+        f"(copies, CUDA events) "
         f"{json.dumps(summary['entry_ms'])}; the largest call "
         f"{json.dumps(largest)}; over the run's {len(calls)} calls: B6 "
         f"{summary['card_ms_a_run']:.4f} ms queued, "
         f"{summary['back_to_back_ms_a_run']:.4f} back to back, bound "
         f"{summary['bound_ms_a_run']:.4f}, entries "
         f"{summary['entry_ms_a_run']:.3f} ms")
+    by_k = summary["median_queued_ms_by_pairs_a_warp"]
+    log(f"[b6-path] pairs a warp (queued): the run's calls "
+        f"{json.dumps(summary['card_ms_a_run_by_pairs_a_warp'])} ms, the "
+        f"median call {json.dumps(by_k)} ms; the wrapper chose {lanes['pairs_per_warp']} there; lane-steps "
+        f"a pair at the median call {lanes['this']:.1f} (a warp a pair "
+        f"{lanes['before']:.1f}) for {lanes['cells']:.1f} cells")
     return [head], summary
 
 
@@ -2216,6 +2306,9 @@ def main() -> int:
         # no single PyTorch call computes a pair-HMM forward pass
         "library_ms": None,
         "headline_windows": head["B"],
+        "redesigned": "PR 11",
+        # lane-steps a pair of the headline call, and a warp a pair's
+        "lane_steps_a_pair": b6_path["lane_steps_a_pair"],
         "path": b6_path,
         # torch.profiler's launches and copies of one call (None and a
         # cause where it recorded none)

@@ -8,7 +8,10 @@ which use the same wavefront dataflow on GPUs).
 
 On a CUDA device the forward pass is kernel B6 (``csrc/pairhmm.cu``, wrapper
 ``ops/pairhmm_cuda.py``), one launch for a batch and one for both
-haplotypes of ``site_allele_loglik``; a failure to build or launch raises.
+haplotypes of ``site_allele_loglik``: a call is one copy in (lengths,
+qualities and codes from a pinned buffer), the launch and one copy out, the
+emissions read by B6 from a table of the device's own; a failure to build
+or launch raises.
 On the CPU it is the plain version, ``pairhmm_forward_batch_plain``: the
 batch axis written out (state ``(B, M + 1)`` float32 per wavefront) and the
 scan a Python loop of ``M + N`` steps.  Inputs and outputs are numpy, as in
@@ -24,6 +27,7 @@ haplotype window around a variant site), batched over thousands of
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
@@ -36,6 +40,8 @@ LOG0 = -1e30
 
 _lock = threading.Lock()
 plain_calls = 0      # calls of the plain version (the CPU path)
+_tables: dict = {}   # device -> B6's emission table
+_pinned = threading.local()   # each thread's staging buffer for B6
 
 
 def _logsumexp3(a, b, c):
@@ -171,68 +177,143 @@ def pairhmm_forward_batch_plain(
     return out.cpu().numpy()
 
 
+def emission_table(dev) -> torch.Tensor:
+    """(2, 256) float32 on ``dev``: lm_match and lm_mis of each phred
+    quality 0..255, from ``_emissions``' own ops on that device, built once
+    a device.  Indexed by the quality clamped to [0, 255] it gives the
+    bytes of ``_emissions`` (the error probability saturates at 0.75 below
+    quality 2 and at 1e-10 above 100)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _lock:
+        table = _tables.get(dev)
+        if table is None:
+            q = torch.arange(256, dtype=torch.int32, device=dev)[None, :]
+            table = torch.cat(_emissions(q, 1, 256, dev)).contiguous()
+            _tables[dev] = table
+        return table
+
+
+def qual_bytes(quals, B: int, M: int, out: np.ndarray | None = None):
+    """Phred qualities as B6 takes them: (B, M) uint8, clamped to [0, 255]
+    after the int32 conversion that ``_emissions`` makes (into ``out``
+    when given)."""
+    q = np.asarray(quals).reshape(B, -1)[:, :M]
+    if q.dtype != np.int32:
+        q = q.astype(np.int32)
+    if out is None:
+        out = np.empty((B, M), np.uint8)
+    return np.clip(q, 0, 255, out=out, casting="unsafe")
+
+
+@functools.lru_cache(maxsize=16)
+def _gaps_f32(gap_open: float, gap_extend: float) -> tuple:
+    """B6's float32 (l_mm, l_gm, l_go, l_ge, l_ins)."""
+    g = _gap_logs(gap_open, gap_extend)
+    return tuple(np.float32(g[k]) for k in ("l_mm", "l_gm", "l_go", "l_ge",
+                                            "l_ins"))
+
+
+def _staging(n: int) -> torch.Tensor:
+    """This thread's pinned host buffer, at least n bytes, reused from call
+    to call.  Its last copy to the card is waited for first (an event
+    recorded after it), so a call that failed before its copy out cannot
+    leave a copy reading the buffer while it is rewritten."""
+    local = _pinned
+    if getattr(local, "copied", None) is not None:
+        local.copied.synchronize()
+    buf = getattr(local, "buf", None)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * (0 if buf is None else buf.numel()), 1 << 16)
+        local.buf = buf = torch.empty(size, dtype=torch.uint8,
+                                      pin_memory=True)
+    return buf
+
+
 def kernel_inputs(reads, read_lens, haps, quals, max_read: int,
                   dev: torch.device, gap_open: float = 1e-3,
                   gap_extend: float = 0.1) -> tuple:
     """The arguments of ``pairhmm_cuda.pairhmm_cuda`` on ``dev`` for the
     read windows against each (hap, hap_len, max_hap) of ``haps``: the
-    inputs cross in one copy, and the emissions are the plain version's
-    own ops on the card."""
+    lengths, qualities (uint8, clamped) and codes are written into one
+    host buffer (this thread's pinned one on a CUDA device) and cross in
+    one copy; the emission table is the device's own."""
     M = int(max_read)
     reads = np.asarray(reads)
     B = reads.shape[0]
     if reads.ndim != 2 or reads.shape[1] < M:
         raise ValueError(f"reads must be (B, >= {M}), got {reads.shape}")
-    # one host buffer: the int32 lengths and quals, then the uint8 codes
-    ints = [np.asarray(read_lens, np.int32).reshape(B)]
-    codes = [np.asarray(reads[:, :M], np.uint8)]
-    widths = []
-    for hap, hap_len, max_hap in haps:
-        hap = np.asarray(hap)
-        N = int(max_hap)
+    hs = [np.asarray(hap) for hap, _, _ in haps]
+    widths = [int(n) for _, _, n in haps]
+    for hap, N in zip(hs, widths):
         if hap.ndim != 2 or hap.shape[0] != B or hap.shape[1] < N:
             raise ValueError(f"haps must be ({B}, >= {N}), got {hap.shape}")
-        ints.append(np.asarray(hap_len, np.int32).reshape(B))
-        codes.append(np.asarray(hap[:, :N], np.uint8))
-        widths.append(N)
+    # the int32 lengths (read, then each window's), then the uint8 quals,
+    # read codes and window codes
+    H = len(haps)
+    n_int = 4 * B * (1 + H)
+    n_q = 0 if quals is None else B * M
+    n = n_int + n_q + B * M + B * sum(widths)
+    cuda = dev.type == "cuda"
+    staged = _staging(n) if cuda else torch.empty(n, dtype=torch.uint8)
+    host = staged.numpy()
+    lens = host[:n_int].view(np.int32).reshape(1 + H, B)
+    lens[0] = read_lens
+    for h, (_, hap_len, _) in enumerate(haps):
+        lens[1 + h] = hap_len
+    off = n_int
     if quals is not None:
-        ints.append(np.asarray(quals, np.int32).reshape(B, -1)[:, :M])
-    n_int = sum(x.size for x in ints)
-    host = np.empty(4 * n_int + sum(x.size for x in codes), np.uint8)
-    host[: 4 * n_int].view(np.int32)[:] = np.concatenate(
-        [x.ravel() for x in ints])
-    host[4 * n_int:] = np.concatenate([x.ravel() for x in codes])
-    buf = torch.from_numpy(host).to(dev)
-    words = buf[: 4 * n_int].view(torch.int32)
-    rlen_d = words[:B]
-    hlen_d = [words[B * (h + 1): B * (h + 2)] for h in range(len(haps))]
-    quals_d = (words[B * (len(haps) + 1):].view(B, M)
-               if quals is not None else None)
-    lm_match, lm_mis = _emissions(quals_d, B, M, dev)
-    off = 4 * n_int
+        qual_bytes(quals, B, M, out=host[off: off + n_q].reshape(B, M))
+        off += n_q
+    np.copyto(host[off: off + B * M].reshape(B, M), reads[:, :M],
+              casting="unsafe")
+    off += B * M
+    for hap, N in zip(hs, widths):
+        np.copyto(host[off: off + B * N].reshape(B, N), hap[:, :N],
+                  casting="unsafe")
+        off += B * N
+    if cuda:
+        buf = torch.empty(n, dtype=torch.uint8, device=dev)
+        buf.copy_(staged[:n], non_blocking=True)
+        if getattr(_pinned, "copied", None) is None:
+            _pinned.copied = torch.cuda.Event()
+        _pinned.copied.record(torch.cuda.current_stream(dev))
+    else:
+        buf = staged
+    words = buf[:n_int].view(torch.int32).view(1 + H, B)
+    off = n_int
+    quals_d = None
+    if quals is not None:
+        quals_d = buf[off: off + n_q].view(B, M)
+        off += n_q
     reads_d = buf[off: off + B * M].view(B, M)
     off += B * M
     haps_d = []
-    for N, hl in zip(widths, hlen_d):
-        haps_d.append((buf[off: off + B * N].view(B, N), hl))
+    for h, N in enumerate(widths):
+        haps_d.append((buf[off: off + B * N].view(B, N), words[1 + h]))
         off += B * N
-    g = _gap_logs(gap_open, gap_extend)
-    gaps = [np.float32(g[k]) for k in ("l_mm", "l_gm", "l_go", "l_ge",
-                                       "l_ins")]
-    return reads_d, rlen_d, lm_match, lm_mis, haps_d, gaps
+    return (reads_d, words[0], quals_d, emission_table(dev), haps_d,
+            _gaps_f32(float(gap_open), float(gap_extend)))
 
 
 def pairhmm_forward_kernel(reads, read_lens, haps, quals, max_read: int,
                            dev: torch.device, gap_open: float = 1e-3,
-                           gap_extend: float = 0.1, want_terms: bool = False):
+                           gap_extend: float = 0.1, want_terms: bool = False,
+                           pairs_per_warp: int | None = None):
     """Kernel B6 on the CUDA device ``dev``: log P(read | hap) (n_haps, B)
     of the read windows against each (hap, hap_len, max_hap) of ``haps``
-    (one or two) from one copy in, one launch and one copy out; with
-    ``want_terms`` also each haplotype's (B, max_read + max_hap) terms."""
+    (one or two) from one copy in, one launch and one copy out (after the
+    device's first call, which also builds its emission table); with
+    ``want_terms`` also each haplotype's (B, max_read + max_hap) terms,
+    copied out after the results.  The copy out waits for the stream, on
+    which the copy in ran before the launch, so the thread's pinned buffer
+    is free again when this returns."""
     from focalsv_tpu_torch.ops import pairhmm_cuda
     out, terms = pairhmm_cuda.pairhmm_cuda(
         *kernel_inputs(reads, read_lens, haps, quals, max_read, dev,
-                       gap_open, gap_extend), want_terms=want_terms)
+                       gap_open, gap_extend), want_terms=want_terms,
+        pairs_per_warp=pairs_per_warp)
     out = out.cpu().numpy()
     if want_terms:
         return out, [t.cpu().numpy() for t in terms]

@@ -151,6 +151,8 @@ inline unsigned __ballot_sync(unsigned, int p) {
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+inline long long min(long long a, long long b) { return a < b ? a : b; }
+inline long long max(long long a, long long b) { return a > b ? a : b; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned s) {
   const unsigned long long x = ((unsigned long long)hi << 32) | lo;

@@ -177,50 +177,48 @@ def rows_plan(*, G: int, R: int, L: int, W: int, max_sites: int,
 
 
 def pairhmm(reads, read_lens, haps, quals=None, max_read: int | None = None,
-            gap_open: float = 1e-3, gap_extend: float = 0.1):
+            gap_open: float = 1e-3, gap_extend: float = 0.1,
+            pairs_per_warp: int | None = None, smem_bytes: int = 232448):
     """B6 run on the CPU: log P(read | hap) (n_haps, B) float32 of the read
     windows against each of ``haps`` (one or two (hap (B, N) uint8,
     hap_len (B,)) pairs) in one launch, and the (B, M + N_h) per-diagonal
     terms of each.  The inputs are prepared as for the card
-    (``ops/pairhmm.py::kernel_inputs``: the emissions from the plain
-    version's own torch ops).  Raises where the kernel refuses them."""
+    (``ops/pairhmm.py::kernel_inputs``: the emission table from the plain
+    version's own torch ops); ``pairs_per_warp`` as the wrapper chooses it
+    when None; ``smem_bytes`` the stand-in card's shared memory a block
+    (less moves the workspaces to scratch).  Raises where the kernel
+    refuses them."""
     reads = np.asarray(reads)
     B = reads.shape[0]
     M = reads.shape[1] if max_read is None else int(max_read)
-    reads_t, rlen, lm_match, lm_mis, haps_t, gaps = kernel_inputs(
+    reads_t, rlen, quals_t, table, haps_t, gaps = kernel_inputs(
         reads, read_lens, [(h, hl, np.asarray(h).shape[1]) for h, hl in haps],
         quals, M, torch.device("cpu"), gap_open, gap_extend)
     out = torch.full((len(haps), B), float("nan"))
     terms = [torch.full((B, M + h.shape[1]), float("nan")) for h, _ in haps_t]
-    args = []
-    for h in range(2):
-        if h < len(haps_t):
-            hap, hl = haps_t[h]
-            args += [hap.data_ptr(), hl.data_ptr(), out[h].data_ptr(),
-                     terms[h].data_ptr(), hap.shape[1]]
-        else:
-            args += [None, None, None, None, 0]
-    err = _pairhmm_lib().focalsv_pairhmm(
-        reads_t.data_ptr(), rlen.data_ptr(), lm_match.data_ptr(),
-        lm_mis.data_ptr(), *args, B, M, len(haps_t), *map(float, gaps), None)
-    if err != 0:
-        raise RuntimeError(f"the pair-HMM kernel refused the batch: error "
-                           f"{err}")
+    K = (pairhmm_cuda.choose_pairs_per_warp(B) if pairs_per_warp is None
+         else int(pairs_per_warp))
+    lib = _pairhmm_lib()
+    with _smem(lib, smem_bytes):
+        pairhmm_cuda.launch(lib.focalsv_pairhmm,
+                            lib.focalsv_pairhmm_scratch_bytes, reads_t, rlen,
+                            quals_t, table, haps_t, gaps, out, terms, K, None)
     return out.numpy(), [t.numpy() for t in terms]
 
 
-def pairhmm_max_read() -> int:
-    """The widest read window B6's source takes (its
-    ``focalsv_pairhmm_max_read``)."""
-    return int(_pairhmm_lib().focalsv_pairhmm_max_read())
+def pairhmm_scratch_bytes(B: int, M: int, widths, pairs_per_warp: int = 2,
+                          smem_bytes: int = 232448) -> int:
+    """The scratch B6's source asks for at this shape on the stand-in card
+    (0: the workspaces fit its shared memory)."""
+    lib = _pairhmm_lib()
+    with _smem(lib, smem_bytes):
+        return int(lib.focalsv_pairhmm_scratch_bytes(
+            B, M, widths[0], widths[1] if len(widths) == 2 else 0,
+            len(widths), pairs_per_warp))
 
 
 def _pairhmm_lib() -> ctypes.CDLL:
     with _lock:
         if "pairhmm" not in _libs:
-            lib = _compile(PAIRHMM_SOURCE)
-            lib.focalsv_pairhmm.argtypes = pairhmm_cuda._ARGTYPES
-            lib.focalsv_pairhmm.restype = ctypes.c_int
-            lib.focalsv_pairhmm_max_read.restype = ctypes.c_int
-            _libs["pairhmm"] = lib
+            _libs["pairhmm"] = pairhmm_cuda.bind(_compile(PAIRHMM_SOURCE))
         return _libs["pairhmm"]

@@ -6,6 +6,7 @@ one NVIDIA GPU.
         [--phases]
     python -m focalsv_tpu_torch.testing.kernel_sweep --b3-only [--against DIR]
         [--phases]
+    python -m focalsv_tpu_torch.testing.kernel_sweep --b6-only [--against DIR]
 
 Builds the kernels, prints what ptxas reports (registers, spills, shared
 memory), and for each band width of the main path runs B1 with every
@@ -44,6 +45,22 @@ tile, the site sweep, the leader (sites, alleles, phasing), the reads'
 classes and the vote sweep.  Both flags together run both.  Needs a CUDA
 device; exits 1 without one.
 
+``--b6-only`` times B6 (the pair-HMM forward pass) on batches shaped as the
+realignment's calls (testing/pairhmm_cases.py::path_like: reads of 21 bases
+against windows of 25, padded to 29) at 1 and 528 reads and at the sizes of
+the smallest, the median and the largest of chip_smoke.py phase 9c's calls
+(278, 967 and 2,605 reads), and at phase 9a's synthetic shapes, with the
+(read, window) pairs a warp that the wrapper chooses and with 1, 2, 4 and 8,
+each held to the plain version (terms byte for byte); ``--against DIR`` also
+builds DIR's focalsv_tpu_torch/csrc/pairhmm.cu (another checkout whose entry
+takes emissions by position, as the earlier source's does) and times both on
+the same inputs in turns (this, other, other, this), held against each
+other: terms byte for byte, results within 1e-5. Then each checkout's entry
+from numpy (site_allele_loglik: copies, launch, checks) at the path-shaped
+sizes by the host clock, each in a process of its own, in the same turns;
+and run_target_mode with use_pairhmm=True on chip_smoke.py's 32 HiFi regions
+in each checkout (regions/s and finish thread-seconds), in turns.
+
 Every time here is taken with the calls queued behind a sleep of the
 stream (time_ms), so it is the card's time alone; chip_smoke.py's ``ms``
 is taken with the calls issued back to back, and reports the queued time
@@ -55,6 +72,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -86,6 +105,252 @@ def time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+# a lone read, a warp a scheduler (528), and the smallest, median and
+# largest of chip_smoke.py phase 9c's calls
+B6_PATH_SIZES = (1, 278, 528, 967, 2605)
+B6_PAIRS_A_WARP = (1, 2, 4, 8)
+
+
+def other_pairhmm(tree: str):
+    """B6 of another checkout whose entry takes emissions by position (the
+    earlier source's), built from its csrc/pairhmm.cu alone: a function
+    (case, its inputs on the card) -> a function that launches it once on
+    them and returns (out (n_haps, B), terms)."""
+    from focalsv_tpu_torch.ops import pairhmm
+    src = Path(tree) / "focalsv_tpu_torch" / "csrc" / "pairhmm.cu"
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = _build.BUILD_DIR / f"libfocalsv_pairhmm_{tag}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not so.exists():
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                              "-o", str(so), str(src)],
+                             capture_output=True, text=True)
+        for line in (res.stdout + res.stderr).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {tree}: {line.strip()}", flush=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    dev = torch.device("cuda")
+    fn = lib.focalsv_pairhmm
+    fn.argtypes = ([ctypes.c_void_p] * 4
+                   + ([ctypes.c_void_p] * 4 + [ctypes.c_int]) * 2
+                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def prepare(case, args):
+        reads, rlen, quals, table, haps, gaps = args
+        B, M = reads.shape
+        q = (None if case["quals"] is None
+             else torch.from_numpy(np.asarray(case["quals"], np.int32)
+                                   [:, :M].copy()).to(dev))
+        lm_match, lm_mis = pairhmm._emissions(q, B, M, dev)
+
+        def run():
+            out = torch.empty((len(haps), B), dtype=torch.float32,
+                              device=dev)
+            terms = [torch.empty((B, M + h.shape[1]), dtype=torch.float32,
+                                 device=dev) for h, _ in haps]
+            ptrs = []
+            for h in range(2):
+                if h < len(haps):
+                    ptrs += [haps[h][0].data_ptr(), haps[h][1].data_ptr(),
+                             out[h].data_ptr(), terms[h].data_ptr(),
+                             haps[h][0].shape[1]]
+                else:
+                    ptrs += [None, None, None, None, 0]
+            err = fn(reads.data_ptr(), rlen.data_ptr(), lm_match.data_ptr(),
+                     lm_mis.data_ptr(), *ptrs, B, M, len(haps),
+                     *map(float, gaps),
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"{tree}'s B6 failed with CUDA error "
+                                   f"{err}")
+            return out, terms
+        return run
+    return prepare
+
+
+# times site_allele_loglik (B6's entry from numpy) in a checkout: argv is
+# the inputs' .npz files; prints {B: host ms a call} as JSON
+ENTRY_TIMING = """
+import json, sys, time
+import numpy as np, torch
+from focalsv_tpu_torch.ops import pairhmm
+dev = torch.device("cuda")
+times = {}
+for path in sys.argv[1:]:
+    z = np.load(path)
+    args = (z["reads"], z["read_lens"], z["ref"], z["ref_lens"], z["alt"],
+            z["alt_lens"], z["quals"])
+    for _ in range(5):
+        pairhmm.site_allele_loglik(*args, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        pairhmm.site_allele_loglik(*args, device=dev)
+    times[len(z["read_lens"])] = (time.perf_counter() - t0) * 1e3 / 50
+print(json.dumps(times))
+"""
+
+
+def entry_ms(tree: str, files: list) -> dict:
+    """Host ms a call of site_allele_loglik (copies in and out, the launch,
+    the wrapper's checks) in the checkout at ``tree``, a process of its
+    own, on each of ``files``' inputs."""
+    env = dict(os.environ, PYTHONPATH=str(Path(tree).resolve()))
+    res = subprocess.run([sys.executable, "-c", ENTRY_TIMING, *files],
+                         cwd=tree, env=env, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"entry timing failed in {tree}:\n{res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def b6_entry_sweep(against: str | None) -> None:
+    """B6's entry from numpy at the path-shaped sizes, this checkout's and
+    (with ``against``) the other's, in turns (this, other, other, this)."""
+    from focalsv_tpu_torch.testing import pairhmm_cases
+    files = []
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for B in B6_PATH_SIZES:
+        c = pairhmm_cases.path_like(11, B)
+        (ref, rl), (alt, al) = c["haps"]
+        path = _build.BUILD_DIR / f"b6_entry_B{B}.npz"
+        np.savez(path, reads=c["reads"], read_lens=c["read_lens"], ref=ref,
+                 ref_lens=rl, alt=alt, alt_lens=al, quals=c["quals"])
+        files.append(str(path))
+    here = str(_build.PKG.parent)
+    turns = [here] + ([against, against] if against else []) + [here]
+    runs = [entry_ms(tree, files) for tree in turns]
+    for B in B6_PATH_SIZES:
+        k = str(B)
+        line = (f"[b6-entry] path_like_B{B} site_allele_loglik host ms a "
+                f"call: this {runs[0][k]:.4f},{runs[-1][k]:.4f}")
+        if against:
+            ratio = ((runs[0][k] + runs[-1][k])
+                     / (runs[1][k] + runs[2][k]))
+            line += (f" against {runs[1][k]:.4f},{runs[2][k]:.4f} "
+                     f"this_over_against={ratio:.3f}")
+        print(line, flush=True)
+
+
+# run_target_mode with use_pairhmm=True in a checkout, once to warm up and
+# twice timed: argv bam, fasta, bed, out; prints [{rps, finish_s}] as JSON
+TARGET_TIMING = """
+import dataclasses, json, sys, time
+from focalsv_tpu_torch.config import preset
+from focalsv_tpu_torch.pipeline import main
+bam, fa, bed, out = sys.argv[1:5]
+n = sum(1 for _ in open(bed))
+cfg = preset("HIFI")
+cfg = cfg.replace(
+    execution=dataclasses.replace(cfg.execution, mode="device"),
+    phasing=dataclasses.replace(cfg.phasing, use_pairhmm=True))
+main.run_target_mode(bam, fa, out + "_warm", cfg, target_bed=bed,
+                     num_workers=8)
+runs = []
+for k in range(2):
+    t0 = time.perf_counter()
+    main.run_target_mode(bam, fa, f"{out}{k}", cfg, target_bed=bed,
+                         num_workers=8)
+    secs = time.perf_counter() - t0
+    with open(f"{out}{k}/chr21/log/device_stats.json") as f:
+        finish = json.load(f)["finish_s"]
+    runs.append(dict(rps=n / secs, finish_s=finish))
+print(json.dumps(runs))
+"""
+
+
+def b6_target_mode_sweep(against: str) -> None:
+    """run_target_mode with use_pairhmm=True on chip_smoke.py's 32 HiFi
+    regions (fetch_timing.write_chromosome), this checkout and the other,
+    each in processes of its own, in turns: regions/s and finish
+    thread-seconds."""
+    from focalsv_tpu_torch.testing.fetch_timing import write_chromosome
+    work = _build.BUILD_DIR / "b6_target_mode"
+    work.mkdir(parents=True, exist_ok=True)
+    bam, queries = write_chromosome(str(work))
+    here = str(_build.PKG.parent)
+    for i, tree in enumerate([here, against, against, here]):
+        env = dict(os.environ, PYTHONPATH=str(Path(tree).resolve()))
+        res = subprocess.run(
+            [sys.executable, "-c", TARGET_TIMING, bam, str(work / "ref.fa"),
+             str(work / "regions.bed"), str(work / f"out{i}_")],
+            cwd=tree, env=env, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"use_pairhmm run failed in {tree}:\n"
+                               f"{res.stderr[-3000:]}")
+        runs = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"[b6-target] {'this' if tree == here else 'against'} "
+              f"use_pairhmm=True {len(queries)} HiFi regions: regions/s "
+              + ", ".join(f"{r['rps']:.3f}" for r in runs)
+              + " finish_s " + ", ".join(f"{r['finish_s']:.2f}" for r in runs),
+              flush=True)
+
+
+def b6_sweep(against: str | None) -> bool:
+    """B6 on path-shaped batches and phase 9a's shapes: against its plain
+    version, with each reads-a-warp setting, and (with ``against``)
+    against another checkout's B6 in turns."""
+    from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
+    from focalsv_tpu_torch.testing import pairhmm_cases
+    dev = torch.device("cuda")
+    other = other_pairhmm(against) if against else None
+    shapes = [(f"path_like_B{B}", pairhmm_cases.path_like(11, B))
+              for B in B6_PATH_SIZES]
+    shapes += [(name, build(9))
+               for name, build in pairhmm_cases.CARD_SHAPES.items()]
+    ok = True
+    for name, case in shapes:
+        B = len(case["read_lens"])
+        args = pairhmm.kernel_inputs(
+            case["reads"], case["read_lens"],
+            [(hap, hl, hap.shape[1]) for hap, hl in case["haps"]],
+            case["quals"], case["max_read"], dev, **case["gaps"])
+        want = pairhmm_cases.plain(case, dev)
+        out, terms = pairhmm_cuda.pairhmm_cuda(*args, want_terms=True)
+        got = (out.cpu().numpy(), [t.cpu().numpy() for t in terms])
+        d = pairhmm_cases.differences(got, want)
+        same = d["terms_bytes_equal"] and d["same_inf"] and \
+            d["out_err"] <= 1e-5
+        K0 = pairhmm_cuda.choose_pairs_per_warp(B)
+        widths = [hap.shape[1] for hap, _ in case["haps"]]
+        steps = {K: pairhmm_cases.lane_steps(
+            case["read_lens"], [hl for _, hl in case["haps"]],
+            case["max_read"], widths, K) / (B * len(widths))
+            for K in sorted({K0, *B6_PAIRS_A_WARP})}
+
+        def this(K=None):
+            return pairhmm_cuda.pairhmm_cuda(*args, pairs_per_warp=K)
+
+        by_K = {K: time_ms(lambda: this(K), 20) for K in B6_PAIRS_A_WARP}
+        line = (f"[b6] {name} B={B} M={case['max_read']} N={widths} "
+                f"equals_plain={same} (max_abs_err {d['out_err']:.3g}) "
+                f"pairs_a_warp={K0} lane_steps_a_pair "
+                + " ".join(f"K{K}={v:.1f}" for K, v in steps.items())
+                + " ms_by_pairs_a_warp "
+                + " ".join(f"K{K}={v:.4f}" for K, v in by_K.items()))
+        if other is not None:
+            run_other = other(case, args)
+            o_out, o_terms = run_other()
+            o = (o_out.cpu().numpy(), [t.cpu().numpy() for t in o_terms])
+            do = pairhmm_cases.differences(got, o)
+            same_o = do["terms_bytes_equal"] and do["same_inf"] and \
+                do["out_err"] <= 1e-5
+            k1 = time_ms(this, 20)
+            o1 = time_ms(run_other, 20)
+            o2 = time_ms(run_other, 20)
+            k2 = time_ms(this, 20)
+            line += (f" | in turns: this_ms={(k1 + k2) / 2:.4f} "
+                     f"({k1:.4f},{k2:.4f}) against_ms={(o1 + o2) / 2:.4f} "
+                     f"({o1:.4f},{o2:.4f}) this_over_against="
+                     f"{(k1 + k2) / (o1 + o2):.3f} equals_against={same_o}")
+            same = same and same_o
+        print(line, flush=True)
+        ok = ok and same
+    return ok
 
 
 def smem_load_to_use() -> tuple[float, float]:
@@ -472,14 +737,17 @@ def main() -> int:
                     help="time B3 alone (phase 6b's noisy chunks, the full "
                          "noisy chunks and the dense cases); with --b2-only "
                          "both")
+    ap.add_argument("--b6-only", action="store_true",
+                    help="time B6 alone (path-shaped batches and phase "
+                         "9a's shapes, with each reads-a-warp setting)")
     ap.add_argument("--phases", action="store_true",
                     help="with --b2-only or --b3-only: also time the "
                          "kernel's phases at its chunks (a build with "
                          "phase stamps)")
     ap.add_argument("--against", metavar="DIR",
-                    help="with --b2-only or --b3-only: also time the "
-                         "kernel of the checkout at DIR, in turns with this "
-                         "one")
+                    help="with --b2-only, --b3-only or --b6-only: also "
+                         "time the kernel of the checkout at DIR, in turns "
+                         "with this one")
     ap.add_argument("--sass", metavar="FILE",
                     help="write the kernels' machine code (cuobjdump -sass) "
                          "to FILE")
@@ -498,6 +766,13 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "Compiling",
                                    "error", "warning")):
             print(f"[build] {line.strip()}", flush=True)
+
+    if args.b6_only:
+        ok = b6_sweep(args.against)
+        b6_entry_sweep(args.against)
+        if args.against:
+            b6_target_mode_sweep(args.against)
+        return 0 if ok else 1
 
     if args.b2_only or args.b3_only:
         ok = True

@@ -105,6 +105,19 @@ def _end_inf(seed: int) -> dict:
     return c
 
 
+def _odd_lens(seed: int) -> dict:
+    """Lengths past the arrays: a read_len above M and below 0, hap_lens
+    above N (the haplotype index clamps to N - 1 and only the diagonals up
+    to M + N exist) and below 0, five pairs a warp."""
+    c = windows(seed, 12, 40, 36)
+    rl = c["read_lens"]
+    (_, hl0), (_, hl1) = c["haps"]
+    rl[:3] = [43, -2, 40]
+    hl0[2] = hl1[2] = 100
+    hl0[3], hl1[3], hl0[4], hl1[5] = 50, 80, -5, 1000
+    return _warp(c, 5)
+
+
 def _gaps(seed: int) -> dict:
     """Gap costs other than the defaults (the reference's jit takes only
     the defaults; the port takes any)."""
@@ -113,19 +126,34 @@ def _gaps(seed: int) -> dict:
     return c
 
 
+def _warp(c: dict, pairs_per_warp: int) -> dict:
+    """B6's warps take this many (read, window) pairs each (the wrapper's
+    choice for a batch of the size would be one)."""
+    c["pairs_per_warp"] = pairs_per_warp
+    return c
+
+
 # the CPU tests' cases (small B): name -> the case made from a seed
 CASES = {
     "realign": lambda s: windows(s, 24, 29, 29),
-    "wide_48x64": lambda s: _widen(windows(s, 12, 48, 64)),
-    # 96 rows: three full groups of 32
-    "wide_95x96": lambda s: windows(s, 8, 95, 96),
+    # both windows of a read in a warp, then the next read's
+    "realign_4_a_warp": lambda s: _warp(windows(s, 24, 29, 29), 4),
+    # three pairs a warp: a warp's first or last read has one window
+    "wide_48x64": lambda s: _warp(_widen(windows(s, 12, 48, 64)), 3),
+    # reads of up to 95 bases: three strips of 32 rows
+    "wide_95x96": lambda s: _warp(windows(s, 8, 95, 96), 4),
     "wide_100x120": lambda s: windows(s, 8, 100, 120),
-    # the widest read window B6 takes (ops/pairhmm_cuda.py::MAX_READ)
     "wide_127x140": lambda s: windows(s, 6, 127, 140),
+    # past 128 bases: five strips of 32 rows and a sixth for the reads
+    # that reach 160 with row 0; the workspaces in shared memory
+    "wide_160x180": lambda s: windows(s, 4, 160, 180),
+    # ten strips, the workspaces in device scratch
+    "wide_300x320": lambda s: windows(s, 4, 300, 320),
     "read_lens": _read_lens,
-    "short_haps": _short_haps,
+    "short_haps": lambda s: _warp(_short_haps(s), 2),
     "codes_no_quals": _codes,
-    "end_inf": _end_inf,
+    "end_inf": lambda s: _warp(_end_inf(s), 6),
+    "odd_lens": _odd_lens,
     "gaps": _gaps,
 }
 
@@ -154,6 +182,32 @@ CARD_SHAPES = {
 }
 
 
+def path_like(seed: int, B: int) -> dict:
+    """B windows shaped as the realignment hands them to B6
+    (phasing/realign.py, flank 10): reads of 21 bases against ref and alt
+    windows of 25, all padded to 29 with code 5; the alt window differs
+    from the ref at the site (column 12); each read is cut at column 2 from
+    one of the two windows, one read in ten with a substitution; HiFi-like
+    qualities (20 to 40)."""
+    rng = np.random.default_rng(seed)
+    L, R, W = 29, 21, 25
+    ref = np.full((B, L), PAD, np.uint8)
+    ref[:, :W] = rng.integers(0, 4, (B, W))
+    alt = ref.copy()
+    alt[:, 12] = (alt[:, 12] + rng.integers(1, 4, B)) % 4
+    src = np.where(rng.random(B)[:, None] < 0.5, ref, alt)
+    reads = np.full((B, L), PAD, np.uint8)
+    reads[:, :R] = src[:, 2: 2 + R]
+    sub = np.nonzero(rng.random(B) < 0.1)[0]
+    k = rng.integers(0, R, len(sub))
+    reads[sub, k] = (reads[sub, k] + 1) % 4
+    quals = rng.integers(20, 41, (B, L)).astype(np.int32)
+    lens = np.full(B, W, np.int32)
+    return dict(reads=reads, read_lens=np.full(B, R, np.int32), quals=quals,
+                haps=[(ref, lens), (alt, lens.copy())], max_read=L,
+                gaps=dict(gap_open=1e-3, gap_extend=0.1))
+
+
 def plain(case: dict, device) -> tuple:
     """The plain version on ``device``, a call a haplotype: results (n_haps,
     B) and the terms of each haplotype."""
@@ -170,15 +224,48 @@ def kernel(case: dict, device) -> tuple:
         case["reads"], case["read_lens"],
         [(hap, hl, hap.shape[1]) for hap, hl in case["haps"]],
         case["quals"], case["max_read"], device, want_terms=True,
-        **case["gaps"])
+        pairs_per_warp=case.get("pairs_per_warp"), **case["gaps"])
 
 
-def host(case: dict) -> tuple:
-    """B6's own source built for the CPU, one launch: as ``plain``."""
+def host(case: dict, **kw) -> tuple:
+    """B6's own source built for the CPU, one launch: as ``plain``.
+    ``kw`` goes to ``host_kernel.pairhmm`` (``smem_bytes``)."""
     from focalsv_tpu_torch.testing import host_kernel
     return host_kernel.pairhmm(case["reads"], case["read_lens"],
                                case["haps"], case["quals"],
-                               case["max_read"], **case["gaps"])
+                               case["max_read"],
+                               pairs_per_warp=case.get("pairs_per_warp"),
+                               **case["gaps"], **kw)
+
+
+def lane_steps(read_lens, hap_lens, max_read: int, widths,
+               pairs_per_warp: int) -> int:
+    """The lane-steps B6 takes for these windows (32 lanes times each warp's
+    steps, as csrc/pairhmm.cu lists a warp's groups), idle lanes
+    included."""
+    rl = np.asarray(read_lens, np.int64)
+    M, B, H, K = int(max_read), len(rl), len(widths), int(pairs_per_warp)
+    ok = (rl >= 1) & (rl <= M)
+    w = np.stack([np.where(ok & (np.asarray(hl, np.int64) >= 1),
+                           np.minimum(np.asarray(hl, np.int64),
+                                      M + int(n) - rl), 0)
+                  for hl, n in zip(hap_lens, widths)], axis=1)
+    total = 0
+    for q0 in range(0, B * H, K):
+        q1 = min(q0 + K, B * H)
+        start = steps = 0
+        for b in range(q0 // H, (q1 - 1) // H + 1):
+            cols = sum(int(w[b, h]) for h in range(H)
+                       if q0 <= b * H + h < q1)
+            if cols == 0:
+                continue
+            S = (int(rl[b]) + 31) // 32
+            for s in range(S):
+                rows = min(32, int(rl[b]) - 32 * s)
+                steps = max(steps, start + cols + rows - 1)
+                start += cols if s == S - 1 else max(cols, 32)
+        total += 32 * steps
+    return total
 
 
 def differences(got: tuple, want: tuple) -> dict:

@@ -5,7 +5,9 @@ step and DP against the unsharded ones, byte for byte (tolerance 0), and an
 NCCL group of one.  Kernel B6 (the pair-HMM forward pass) against its plain
 version on the card: the per-diagonal terms byte for byte, the results
 within 1e-5 absolute (the kernel sums the terms in another order than
-torch.sum), -inf at the same places.
+torch.sum), -inf at the same places, on every case and at any width (M = N
+= 1,024 with its workspaces in device scratch); its emission table against
+the elementwise emissions, byte for byte.
 
 They skip without a CUDA device.  This file imports no jax, so that it runs
 on a machine without it:
@@ -221,18 +223,70 @@ def test_site_allele_loglik_is_one_launch_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_site_allele_loglik_after_the_first_is_one_launch(cuda):
+    """A call after the device's first (which builds the emission table)
+    adds exactly one launch of B6 and calls the plain version not at all."""
+    case = pairhmm_cases.build("realign")
+    (ref, rhl), (alt, ahl) = case["haps"]
+    args = (case["reads"], case["read_lens"], ref, rhl, alt, ahl,
+            case["quals"])
+    first = pairhmm.site_allele_loglik(*args, device=cuda)
+    table = pairhmm.emission_table(cuda)
+    before, plain_before = pairhmm_cuda.launches, pairhmm.plain_calls
+    again = pairhmm.site_allele_loglik(*args, device=cuda)
+    assert pairhmm_cuda.launches == before + 1
+    assert pairhmm.plain_calls == plain_before
+    assert pairhmm.emission_table(cuda) is table
+    for a, f in zip(again, first):
+        assert a.tobytes() == f.tobytes()
+
+
+@pytest.mark.cuda
+def test_emission_table_equals_elementwise_on_card(cuda):
+    """The table on the card, indexed by the clamped quality, gives the
+    bytes of the plain version's elementwise emissions on the card."""
+    q = np.arange(-50, 400, dtype=np.int32).reshape(9, 50)
+    lm_match, lm_mis = pairhmm._emissions(q, *q.shape, cuda)
+    table = pairhmm.emission_table(cuda)
+    idx = torch.from_numpy(pairhmm.qual_bytes(q, *q.shape).astype(np.int64))
+    assert torch.equal(table[0][idx.to(cuda)], lm_match)
+    assert torch.equal(table[1][idx.to(cuda)], lm_mis)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["M1024_N1024", "wide_160x180",
+                                  "wide_300x320"])
+def test_pairhmm_kernel_takes_any_width(cuda, name):
+    """Past 128 bases B6 walks the reads in strips of 32 rows; at M = N =
+    1,024 its workspaces go to device scratch.  Held to the plain version as
+    on every case."""
+    from focalsv_tpu_torch.ops import pairhmm_cuda as wrapper
+    case = (pairhmm_cases.windows(0, 4, 1024, 1024)
+            if name == "M1024_N1024" else pairhmm_cases.build(name))
+    B, M = case["reads"].shape
+    widths = [hap.shape[1] for hap, _ in case["haps"]]
+    need = wrapper._library().focalsv_pairhmm_scratch_bytes(
+        B, M, widths[0], widths[1], 2, 1)
+    assert (need > 0) == (name != "wide_160x180")
+    before = pairhmm_cuda.launches
+    got = pairhmm_cases.kernel(case, cuda)
+    assert pairhmm_cuda.launches == before + 1
+    d = pairhmm_cases.differences(got, pairhmm_cases.plain(case, cuda))
+    assert d["terms_bytes_equal"] and d["same_inf"], d
+    assert d["out_err"] <= 1e-5, d
+    assert np.isfinite(got[0]).sum() >= got[0].size // 2
+
+
+@pytest.mark.cuda
 def test_pairhmm_kernel_refuses_and_raises(cuda, monkeypatch):
     """What B6 does not take raises, and so does a launch the card refuses;
     nothing falls back to the plain version or counts a launch."""
     before = pairhmm_cuda.launches
-    wide = pairhmm_cases.windows(0, 4, pairhmm_cuda.MAX_READ + 1, 29)
-    with pytest.raises(ValueError, match="read windows"):
-        pairhmm_cases.kernel(wide, cuda)
     reads = torch.zeros((4, 29), dtype=torch.int32, device=cuda)
     lens = torch.zeros(4, dtype=torch.int32, device=cuda)
-    lm = torch.zeros((4, 29), dtype=torch.float32, device=cuda)
+    table = pairhmm.emission_table(cuda)
     with pytest.raises(TypeError, match="reads"):
-        pairhmm_cuda.pairhmm_cuda(reads, lens, lm, lm,
+        pairhmm_cuda.pairhmm_cuda(reads, lens, None, table,
                                   [(reads.to(torch.uint8), lens)], [0.0] * 5)
     monkeypatch.setattr(pairhmm_cuda, "_kernel", lambda: (lambda *a: 1))
     plain_before = pairhmm.plain_calls

@@ -1,19 +1,21 @@
 """Kernel B6 (the pair-HMM forward pass, ``csrc/pairhmm.cu``) on the CPU, and
 the pair-HMM target mode through both packages' entry point.
 
-B6's own source, built for the CPU (``testing/host_kernel.py::pairhmm``:
-g++ with the stand-in CUDA headers, a lane a thread), against its plain
-version, ``pairhmm_forward_batch_plain``, on every case of
-``testing/pairhmm_cases.py``.  Tolerance 1e-4 absolute, with -inf at the
-same places: the host build's expf and logf are glibc's, the plain
-version's PyTorch's vectorised ones, and the two may differ by some ulps
-(on the card, where both are libdevice's, the terms are compared byte for
-byte: tests/test_torch_cuda.py).  The plain version is held to the JAX
-package's ``pairhmm_forward_batch`` at 1e-3 on the same cases (float32
-log and exp round differently in XLA and in PyTorch; the reference's jit
-takes the gap costs only at their defaults, so the case with other costs
-is left out there).  ``run_target_mode`` with ``use_pairhmm=True`` in
-device execution writes the same VCF in both packages."""
+B6's own source, built for the CPU (``testing/host_kernel.py::pairhmm``: g++
+with the stand-in CUDA headers, a lane a thread), against its plain version,
+``pairhmm_forward_batch_plain``, on every case of
+``testing/pairhmm_cases.py`` (reads past 128 bases in strips of 32 rows,
+several pairs a warp, workspaces in shared memory and in scratch). Tolerance
+1e-4 absolute, with -inf at the same places: the host build's expf and logf
+are glibc's, the plain version's PyTorch's vectorised ones, and the two may
+differ by some ulps (on the card, where both are libdevice's, the terms are
+compared byte for byte: tests/test_torch_cuda.py). The plain version is held
+to the JAX package's ``pairhmm_forward_batch`` at 1e-3 on the same cases
+(float32 log and exp round differently in XLA and in PyTorch; the
+reference's jit takes the gap costs only at their defaults, so the case with
+other costs is left out there). ``run_target_mode`` with
+``use_pairhmm=True`` in device execution writes the same VCF in both
+packages."""
 
 import dataclasses
 
@@ -98,16 +100,47 @@ def test_cpu_path_runs_the_plain_version():
     np.testing.assert_array_equal(la, want[1])
 
 
-def test_kernel_source_takes_reads_up_to_max_read():
-    """B6's source takes read windows up to the wrapper's MAX_READ (the
-    widest case above) and refuses one base more."""
+def test_kernel_source_takes_any_width():
+    """B6's source takes read windows past 128 bases: at 160 x 180 its
+    workspaces sit in shared memory, at 300 x 320 in device scratch, and
+    each case gives the same bytes with the workspaces moved to scratch
+    (the stand-in card's shared memory shrunk to none)."""
     from focalsv_tpu_torch.testing import host_kernel
-    assert host_kernel.pairhmm_max_read() == pairhmm_cuda.MAX_READ
-    assert max(pairhmm_cases.build(n)["max_read"]
-               for n in pairhmm_cases.CASES) == pairhmm_cuda.MAX_READ
-    wide = pairhmm_cases.windows(0, 4, pairhmm_cuda.MAX_READ + 1, 29)
-    with pytest.raises(RuntimeError, match="refused"):
-        pairhmm_cases.host(wide)
+    for name, in_shared in (("wide_160x180", True), ("wide_300x320", False)):
+        case = pairhmm_cases.build(name)
+        B, M = case["reads"].shape
+        widths = [hap.shape[1] for hap, _ in case["haps"]]
+        assert M > 128 and case["read_lens"].max() > 128
+        assert (host_kernel.pairhmm_scratch_bytes(B, M, widths) == 0) \
+            == in_shared
+        assert host_kernel.pairhmm_scratch_bytes(B, M, widths,
+                                                 smem_bytes=0) > 0
+        got = pairhmm_cases.host(case)
+        moved = pairhmm_cases.host(case, smem_bytes=0)
+        assert got[0].tobytes() == moved[0].tobytes()
+        assert all(t.tobytes() == m.tobytes()
+                   for t, m in zip(got[1], moved[1]))
+        d = pairhmm_cases.differences(got, pairhmm_cases.plain(case, "cpu"))
+        assert d["same_inf"], d
+        assert d["terms_err"] <= HOST_ATOL and d["out_err"] <= HOST_ATOL, d
+
+
+def test_emission_table_equals_elementwise():
+    """B6's emission table, indexed by the quality clamped to [0, 255]
+    (``qual_bytes``), gives the bytes of the plain version's elementwise
+    emissions for every int32 quality in [-50, 400)."""
+    rng = np.random.default_rng(4)
+    q = rng.integers(-50, 400, (997, 29)).astype(np.int32)
+    q[0, :] = np.arange(-50, -21)
+    q.ravel()[29: 29 + 450] = np.arange(-50, 400)
+    dev = torch.device("cpu")
+    lm_match, lm_mis = thmm._emissions(q, *q.shape, dev)
+    table = thmm.emission_table(dev)
+    assert table.shape == (2, 256) and table.dtype == torch.float32
+    assert thmm.emission_table(dev) is table          # built once
+    idx = torch.from_numpy(thmm.qual_bytes(q, *q.shape).astype(np.int64))
+    assert table[0][idx].numpy().tobytes() == lm_match.numpy().tobytes()
+    assert table[1][idx].numpy().tobytes() == lm_mis.numpy().tobytes()
 
 
 def test_wrapper_refuses_cpu_tensors():
@@ -115,9 +148,9 @@ def test_wrapper_refuses_cpu_tensors():
     B, M = 4, 29
     reads = torch.zeros((B, M), dtype=torch.uint8)
     lens = torch.full((B,), M, dtype=torch.int32)
-    lm = torch.zeros((B, M), dtype=torch.float32)
+    table = thmm.emission_table("cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        pairhmm_cuda.pairhmm_cuda(reads, lens, lm, lm, [(reads, lens)],
+        pairhmm_cuda.pairhmm_cuda(reads, lens, None, table, [(reads, lens)],
                                   [0.0] * 5)
 
 
