@@ -72,8 +72,8 @@ on the card in phases, and exits non-zero at the first phase that fails:
    one launch; a stress size of 15,000; a wide one, reads of 48, windows
    of 64 and 40): the per-diagonal terms byte for byte, the results within
    1e-5 with -inf at the same places; timed in turns, with the launches
-   and copies of a call of each (torch.profiler; B6's entry is 3: copy
-   in, B6, copy out).  9b: run_target_mode with use_pairhmm=True in
+   and copies of a call of each (torch.profiler, and for B6's entry the
+   wrappers' counts, which must give 3: copy in, B6, copy out).  9b: run_target_mode with use_pairhmm=True in
    device mode on the card, on phase 6's 32 HiFi regions and phase 6b's 8
    noisy ones, and on the CPU (FOCALSV_TORCH_DEVICE=cpu, the plain version,
    in a subprocess; the HiFi run on the first 8 regions, two of each size,
@@ -83,9 +83,10 @@ on the card in phases, and exits non-zero at the first phase that fails:
    realignment handed the kernel in 9b's HiFi run (one call a region,
    recorded in the run through the plain version): each call held to the
    plain version as in 9a and timed, also with 1, 2 and 4 pairs a warp
-   beside the wrapper's choice; the region of median windows is the
-   kernels line's headline (with its lane-steps a pair, and those of
-   a warp a pair), and the sum over the 32 calls is B6's card time a run;
+   beside the wrapper's choice, its entry held to 3 launches and copies;
+   the region of median windows is the kernels line's headline (with the
+   lane-steps a pair that B6 counts there), and the sum over the 32 calls
+   is B6's card time a run;
 10. evaluation.cli bench of phase 6's device VCF against the simulation's
    truth; prints F1;
 11. the multi-device and multi-process path on a mesh of every card present
@@ -278,7 +279,10 @@ def build_kernels() -> None:
                     ("traceback_kernel", "B4"),
                     ("region_step_kernelINS_8DeltaSrc", "B2"),
                     ("region_step_kernelINS_7RowsSrc", "B3"),
-                    ("pairhmm_kernel", "B6"))
+                    ("pairhmm_kernelILb1ELb0E", "B6 shared, one strip"),
+                    ("pairhmm_kernelILb1ELb1E", "B6 shared, strips"),
+                    ("pairhmm_kernelILb0ELb0E", "B6 scratch, one strip"),
+                    ("pairhmm_kernelILb0ELb1E", "B6 scratch, strips"))
                  if k in line), line)
             line = f"kernel {name}"
         elif not ("registers" in line or "spill" in line):
@@ -1370,6 +1374,20 @@ def b6_entry(case: dict):
         device=DEVICE, **case["gaps"])
 
 
+def b6_entry_counted(case: dict) -> int:
+    """Launches and copies of one call of B6's entry, from the wrappers'
+    counts: B6's launches and the entry's copies between host and card.
+    Fails if the call built an emission table (a launch that no count
+    sees): every call after the device's first finds it built."""
+    from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
+    tables = len(pairhmm._tables)
+    launches, copies = pairhmm_cuda.launches, pairhmm.copies
+    b6_entry(case)
+    if len(pairhmm._tables) != tables:
+        raise AssertionError("B6's entry built an emission table again")
+    return (pairhmm_cuda.launches - launches) + (pairhmm.copies - copies)
+
+
 def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
     """B6 against its plain version on the card, both from the same numpy
     inputs: the terms byte for byte, the results within 1e-5 (B6 sums the
@@ -1377,9 +1395,10 @@ def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
     ``timed``: ms of the wrapper's calls on the inputs already on the card
     (back to back, and queued behind a sleep of the stream), of the plain
     version's calls (a call a haplotype, from the numpy inputs), in turns;
-    the bound; the launches and copies of one call of each (B6's entry
-    from the numpy inputs, b6_entry: copy in, B6, copy out; 3 unless
-    torch.profiler lost the record)."""
+    the bound; the launches and copies of one call of B6's entry from the
+    numpy inputs (b6_entry: copy in, B6, copy out), from the wrappers'
+    counts (must be 3) and from torch.profiler (may lose or cut the
+    record), and of the plain version's call (torch.profiler)."""
     from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
     from focalsv_tpu_torch.testing import pairhmm_cases
     before = pairhmm_cuda.launches
@@ -1411,28 +1430,19 @@ def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
             ms=(k1 + k2) / 2, queued_ms=queued, plain_ms=(p1 + p2) / 2,
             bound_ms=bound, bound_by=by,
             pairs_per_warp=pairhmm_cuda.choose_pairs_per_warp(row["B"]),
-            entry_launches=profiled_launches(lambda: b6_entry(case),
-                                             "pairhmm_kernel"),
+            entry_launches=b6_entry_counted(case),
+            entry_launches_profiled=profiled_launches(
+                lambda: b6_entry(case), "pairhmm_kernel"),
             plain_launches=profiled_launches(plain))
-        lost = [k for k in ("entry_launches", "plain_launches")
-                if row[k] is None]
-        if lost:
-            row["launches_note"] = (
-                f"{' and '.join(lost)}: torch.profiler recorded no launch in "
-                f"{PROFILE_TRIES} tries; B6's own count shows one launch a "
-                f"call")
-        elif row["entry_launches"] < 3:
-            row["launches_note"] = (
-                "torch.profiler cut the entry's record (3: copy in, B6, "
-                "copy out)")
         timing = (f" kernel_ms={k1:.4f},{k2:.4f} queued_ms={queued:.4f} "
                   f"plain_ms={p1:.2f},{p2:.2f} bound_ms={bound:.4f} "
                   f"bound_by={by} share_of_bound={bound / queued:.3f} "
                   f"(queued) pairs a warp {row['pairs_per_warp']}; "
-                  f"launches and copies a call (torch.profiler; "
-                  f"None: not recorded): B6's entry "
-                  f"{row['entry_launches']}, plain "
-                  f"{row['plain_launches']}")
+                  f"launches and copies a call: B6's entry "
+                  f"{row['entry_launches']} (the wrappers' counts), "
+                  f"{row['entry_launches_profiled']} (torch.profiler; None: "
+                  f"not recorded), plain {row['plain_launches']} "
+                  f"(torch.profiler)")
     log(f"[b6] {name}: B={row['B']} M={row['M']} N={widths} terms "
         f"byte-equal={d['terms_bytes_equal']} -inf at the same places="
         f"{d['same_inf']} max_abs_err={d['out_err']:.3g} (tolerance 1e-5) "
@@ -1441,9 +1451,12 @@ def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
             and d["out_err"] <= 1e-5 and one_launch):
         raise AssertionError(f"B6 differs from its plain version ({name})")
     # the profiler may lose or cut a record, never add one
-    if (row.get("entry_launches") or 0) > 3:
-        raise AssertionError(f"B6's entry took {row['entry_launches']} "
-                             f"launches and copies, more than 3 ({name})")
+    if timed and (row["entry_launches"] != 3
+                  or (row["entry_launches_profiled"] or 0) > 3):
+        raise AssertionError(
+            f"B6's entry took {row['entry_launches']} launches and copies "
+            f"by the wrappers' counts, {row['entry_launches_profiled']} by "
+            f"torch.profiler, not 3 ({name})")
     return row
 
 
@@ -1642,30 +1655,14 @@ def pairhmm_slice(work: str, main_path: dict, noisy: dict) -> list:
     return traffic
 
 
-def b6_lane_steps(case: dict, pairs_per_warp: int) -> dict:
-    """Lane-steps a pair of this call: B6's (pairhmm_cases.lane_steps, at
-    ``pairs_per_warp``), the earlier design's (a warp a pair, every lane
-    of each group of 32 rows a read_len reaches over the read_len +
-    hap_len diagonals) and the cells the data needs."""
-    from focalsv_tpu_torch.testing import pairhmm_cases
-    M = case["max_read"]
-    rl = case["read_lens"].astype(np.int64)
-    hls = [hl.astype(np.int64) for _, hl in case["haps"]]
-    widths = [hap.shape[1] for hap, _ in case["haps"]]
-    pairs = len(rl) * len(hls)
-    before = 0
-    cells = 0
-    for hl, n in zip(hls, widths):
-        last_row = np.minimum(rl, M)
-        groups = np.where(last_row < 0, 0, last_row // 32 + 1)
-        diags = np.where(last_row < 0, 0,
-                         np.minimum(M + n, np.maximum(0, last_row + hl)))
-        before += int((32 * groups * diags).sum())
-        ok = (rl >= 1) & (rl <= M)
-        cells += int((np.where(ok, rl, 0) * np.clip(hl, 0, n)).sum())
-    this = pairhmm_cases.lane_steps(rl, hls, M, widths, pairs_per_warp)
-    return dict(this=this / pairs, before=before / pairs,
-                cells=cells / pairs, pairs_per_warp=pairs_per_warp)
+def b6_lane_steps(args, pairs: int, K: int | None = None) -> float:
+    """Lane-steps a pair that B6 took in one launch on these inputs (its
+    counter: 32 times each warp's steps, idle lanes included), at K pairs
+    a warp (the wrapper's choice when None)."""
+    from focalsv_tpu_torch.ops import pairhmm_cuda
+    counted = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    pairhmm_cuda.pairhmm_cuda(*args, pairs_per_warp=K, lane_steps=counted)
+    return int(counted.item()) / pairs
 
 
 def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
@@ -1676,9 +1673,10 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
     behind a sleep of the stream (20 calls each), queued again with each
     of PAIRS_A_WARP pairs a warp, and the entry from the numpy inputs
     (site_allele_loglik: copy in, B6, copy out; 5 calls, CUDA events, the
-    host's time inside).  The region of median windows is also timed as 9a
-    times its shapes: the kernels line's headline.  Returns its row and a
-    summary of the run's calls."""
+    host's time inside), whose launches and copies the wrappers' counts
+    hold to 3.  The region of median windows is also timed as 9a times its
+    shapes, and B6's lane-steps counted there: the kernels line's headline.
+    Returns its row and a summary of the run's calls."""
     from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
     from focalsv_tpu_torch.testing import pairhmm_cases
     sizes = [len(c["read_lens"]) for c in traffic]
@@ -1704,6 +1702,10 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
             return pairhmm_cuda.pairhmm_cuda(*args, pairs_per_warp=K)
 
         launch()
+        entry_launches = b6_entry_counted(case)
+        if entry_launches != 3:
+            raise AssertionError(f"B6's entry took {entry_launches} launches "
+                                 f"and copies on the path's call {k}, not 3")
         calls.append(dict(
             B=sizes[k], err=d["out_err"], ms=time_ms(launch, 20),
             queued_ms=time_ms(launch, 20, queued=True),
@@ -1711,7 +1713,17 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
                 K: time_ms(lambda: launch(K), 20, queued=True)
                 for K in PAIRS_A_WARP},
             entry_ms=time_ms(lambda: b6_entry(case), 5),
-            bound_ms=b6_bound(case)[0]))
+            entry_launches=entry_launches, bound_ms=b6_bound(case)[0]))
+        if k == median:
+            pairs = sizes[k] * len(case["haps"])
+            lanes = dict(
+                measured=b6_lane_steps(args, pairs),
+                by_pairs_a_warp={K: b6_lane_steps(args, pairs, K)
+                                 for K in PAIRS_A_WARP},
+                modelled=pairhmm_cases.lane_steps(
+                    case["read_lens"], [hl for _h, hl in case["haps"]],
+                    case["max_read"], [h.shape[1] for h, _ in case["haps"]],
+                    pairhmm_cuda.choose_pairs_per_warp(sizes[k])) / pairs)
     reads = np.concatenate([c["read_lens"] for c in traffic])
     wins = np.concatenate([hl for c in traffic for _h, hl in c["haps"][:1]])
     largest = max(calls, key=lambda c: c["B"])
@@ -1720,8 +1732,9 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
         v = sorted(c[key] for c in calls)
         return dict(min=v[0], median=v[len(v) // 2], max=v[-1])
 
-    lanes = b6_lane_steps(traffic[median],
-                          pairhmm_cuda.choose_pairs_per_warp(sizes[median]))
+    fastest = [(c["B"], min(PAIRS_A_WARP,
+                            key=c["queued_ms_by_pairs_a_warp"].__getitem__))
+               for c in sorted(calls, key=lambda c: c["B"])]
     summary = dict(
         regions=len(calls), windows_a_region=dict(
             mean=float(np.mean(sizes)), **spread("B")),
@@ -1743,7 +1756,8 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
             for K in PAIRS_A_WARP},
         median_queued_ms_by_pairs_a_warp=calls[median][
             "queued_ms_by_pairs_a_warp"],
-        lane_steps_a_pair=lanes)
+        # counted by B6 at the median call, with the wrapper's choice
+        lane_steps_a_pair=lanes["measured"])
     log(f"[b6-path] 9b's HiFi run handed B6 {len(calls)} calls, windows a "
         f"call {json.dumps(summary['windows_a_region'])}; read lengths "
         f"(bases: windows) {json.dumps(summary['read_lens'])}, window "
@@ -1762,11 +1776,16 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
         f"{summary['bound_ms_a_run']:.4f}, entries "
         f"{summary['entry_ms_a_run']:.3f} ms")
     by_k = summary["median_queued_ms_by_pairs_a_warp"]
+    K = pairhmm_cuda.choose_pairs_per_warp(sizes[median])
     log(f"[b6-path] pairs a warp (queued): the run's calls "
         f"{json.dumps(summary['card_ms_a_run_by_pairs_a_warp'])} ms, the "
-        f"median call {json.dumps(by_k)} ms; the wrapper chose {lanes['pairs_per_warp']} there; lane-steps "
-        f"a pair at the median call {lanes['this']:.1f} (a warp a pair "
-        f"{lanes['before']:.1f}) for {lanes['cells']:.1f} cells")
+        f"median call {json.dumps(by_k)} ms, the wrapper chose {K} there; "
+        f"the fastest of {list(PAIRS_A_WARP)} by call (B, pairs a warp) "
+        f"{json.dumps(fastest)}")
+    log(f"[b6-path] lane-steps a pair at the median call, counted by B6: "
+        f"{lanes['measured']:.1f} at {K} pairs a warp, by pairs a warp "
+        f"{json.dumps(lanes['by_pairs_a_warp'])}; modelled "
+        f"(pairhmm_cases.lane_steps) {lanes['modelled']:.1f}")
     return [head], summary
 
 
@@ -2307,14 +2326,15 @@ def main() -> int:
         "library_ms": None,
         "headline_windows": head["B"],
         "redesigned": "PR 11",
-        # lane-steps a pair of the headline call, and a warp a pair's
+        # lane-steps a pair of the headline call, counted by B6
         "lane_steps_a_pair": b6_path["lane_steps_a_pair"],
         "path": b6_path,
-        # torch.profiler's launches and copies of one call (None and a
-        # cause where it recorded none)
+        # launches and copies of one call: B6's entry by the wrappers'
+        # counts and by torch.profiler, the plain version's by
+        # torch.profiler (None where it recorded none)
         "launches_a_call": {r["case"]: {
-            k: r[k] for k in ("entry_launches", "plain_launches",
-                              "launches_note") if k in r} for r in timed},
+            k: r[k] for k in ("entry_launches", "entry_launches_profiled",
+                              "plain_launches")} for r in timed},
         "ms_by_case": {r["case"]: r["ms"] for r in timed},
         "queued_ms_by_case": {r["case"]: r["queued_ms"] for r in timed},
         "plain_ms_by_case": {r["case"]: r["plain_ms"] for r in timed},

@@ -66,11 +66,12 @@
 // walk the warp turns them into the terms (lse2 and fmaxf, spread over the
 // lanes), takes their maximum and the sum of their exps with butterflies,
 // and writes the results (and, when asked, each pair's M + N terms, LOG0
-// off the end row).  A warp's workspace (its groups, the reads' codes and
-// emissions, the windows, the bottom rows and the end rows) sits in shared
-// memory when four warps' fit in kSmemBudget, else in device scratch that
-// the wrapper allocates: any read or window width is taken.  The kernel is
-// built for each of the two places and for reads of one strip or more.
+// off the end row, and its lane-steps into a counter).  A warp's workspace
+// (its groups, the reads' codes and emissions, the windows, the bottom rows
+// and the end rows) sits in shared memory when four warps' fit in
+// kSmemBudget, else in device scratch that the wrapper allocates: any read
+// or window width is taken.  The kernel is built for each of the two places
+// and for reads of one strip or more.
 //
 // The host rehearsal (focalsv_tpu_torch/testing/host_kernel.py) builds this
 // source with g++ against testing/host_cuda/.
@@ -116,6 +117,7 @@ struct Params {
   float* terms[2];           // (B, M + N_h) or null
   float* out;                // (n_haps, B)
   unsigned char* scratch;    // the warps' workspaces, or null: shared memory
+  unsigned long long* lane_steps;   // adds the warps' lane-steps, or null
   Layout lay;
   int B, M, N[2], n_haps, K, n_warps;
   float l_mm, l_gm, l_go, l_ge, l_ins;
@@ -364,6 +366,8 @@ __global__ void __launch_bounds__(kWarps * 32) pairhmm_kernel(Params p) {
     if (kStrips) __syncwarp();   // a bottom row written before it is read
   }
   __syncwarp();
+  if (p.lane_steps != nullptr && lane == 0)
+    atomicAdd(p.lane_steps, 32ull * (unsigned long long)steps);
 
   // the terms of each of the warp's pairs, their maximum and the sum of
   // their exps
@@ -461,18 +465,20 @@ extern "C" long long focalsv_pairhmm_scratch_bytes(int B, int M, int N0,
 // (quality 30), table (2, 256) float32 (lm_match and lm_mis by quality); for
 // haplotype h: hap_h (B, N_h) uint8, hap_len_h (B,) int32 and terms_h (B, M
 // + N_h) float32 or null; out (n_haps, B) float32; scratch of scratch_bytes
-// as focalsv_pairhmm_scratch_bytes asks (null when it asks none); each warp
-// takes pairs_per_warp consecutive (read, window) pairs, both windows of a
-// read after another.  The l_* are the log transition and insert-emission
+// as focalsv_pairhmm_scratch_bytes asks (null when it asks none);
+// lane_steps one uint64 to which the launch adds 32 times each warp's steps
+// (the lane-steps it took, idle lanes included), or null; each warp takes
+// pairs_per_warp consecutive (read, window) pairs, both windows of a read
+// after another.  The l_* are the log transition and insert-emission
 // probabilities.  Returns 0 or a CUDA error; cudaErrorInvalidValue for a
 // shape it does not take or too little scratch.
 extern "C" int focalsv_pairhmm(
     const void* reads, const void* read_lens, const void* quals,
     const void* table, const void* hap0, const void* hap_len0,
     const void* hap1, const void* hap_len1, void* out, void* terms0,
-    void* terms1, void* scratch, long long scratch_bytes, int B, int M,
-    int N0, int N1, int n_haps, int pairs_per_warp, float l_mm, float l_gm,
-    float l_go, float l_ge, float l_ins, void* stream) {
+    void* terms1, void* scratch, void* lane_steps, long long scratch_bytes,
+    int B, int M, int N0, int N1, int n_haps, int pairs_per_warp, float l_mm,
+    float l_gm, float l_go, float l_ge, float l_ins, void* stream) {
   const long long need = focalsv_pairhmm_scratch_bytes(B, M, N0, N1, n_haps,
                                                        pairs_per_warp);
   if (need < 0 || (need > 0 && (scratch == nullptr || scratch_bytes < need)))
@@ -495,6 +501,7 @@ extern "C" int focalsv_pairhmm(
   }
   p.out = static_cast<float*>(out);
   p.scratch = static_cast<unsigned char*>(scratch);
+  p.lane_steps = static_cast<unsigned long long*>(lane_steps);
   p.lay = layout(M, p.N, n_haps, pairs_per_warp);
   p.B = B;
   p.M = M;

@@ -40,6 +40,7 @@ LOG0 = -1e30
 
 _lock = threading.Lock()
 plain_calls = 0      # calls of the plain version (the CPU path)
+copies = 0           # copies between host and card that B6's entry made
 _tables: dict = {}   # device -> B6's emission table
 _pinned = threading.local()   # each thread's staging buffer for B6
 
@@ -215,6 +216,12 @@ def _gaps_f32(gap_open: float, gap_extend: float) -> tuple:
                                             "l_ins"))
 
 
+def _count_copies(n: int) -> None:
+    global copies
+    with _lock:
+        copies += n
+
+
 def _staging(n: int) -> torch.Tensor:
     """This thread's pinned host buffer, at least n bytes, reused from call
     to call.  Its last copy to the card is waited for first (an event
@@ -276,6 +283,7 @@ def kernel_inputs(reads, read_lens, haps, quals, max_read: int,
     if cuda:
         buf = torch.empty(n, dtype=torch.uint8, device=dev)
         buf.copy_(staged[:n], non_blocking=True)
+        _count_copies(1)
         if getattr(_pinned, "copied", None) is None:
             _pinned.copied = torch.cuda.Event()
         _pinned.copied.record(torch.cuda.current_stream(dev))
@@ -315,6 +323,7 @@ def pairhmm_forward_kernel(reads, read_lens, haps, quals, max_read: int,
                        gap_open, gap_extend), want_terms=want_terms,
         pairs_per_warp=pairs_per_warp)
     out = out.cpu().numpy()
+    _count_copies(1 + (len(terms) if want_terms else 0))
     if want_terms:
         return out, [t.cpu().numpy() for t in terms]
     return out

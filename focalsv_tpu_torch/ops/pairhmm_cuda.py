@@ -28,15 +28,18 @@ windows = 0      # (read, haplotype) pairs those launches computed
 
 # (read, window) pairs a warp takes by the reads of a call, both windows
 # of a read one after the other: one pair while a call leaves the card's
-# warps few (a warp's steps in a row set the time), more as it fills the
-# card (fewer idle lanes a pair); from the times of 1, 2, 4 and 8 pairs a
-# warp at 1 to 15,000 reads on an H100 (kernel_sweep.py --b6-only)
-PAIRS_BY_BATCH = ((0, 1), (750, 2), (3300, 4))
+# warps few (a warp's steps in a row set the time), two as it fills the
+# card (fewer idle lanes a pair).  The realignment's calls (278 to 2,605
+# reads, chip_smoke.py phase 9c) never gain from four.  On an H100, at the
+# calls' shape, one pair a warp is 1.2x faster up to 750 reads, and two
+# 1.05x faster from 800 (kernel_sweep.py --b6-only, B6_CUT_SCAN): the time
+# at one pair steps up once 2 B warps pass 12 an SM.
+PAIRS_BY_BATCH = ((0, 1), (800, 2))
 
 # focalsv_pairhmm: reads, read_lens, quals, table, hap0, hap_len0, hap1,
-# hap_len1, out, terms0, terms1, scratch; scratch_bytes; B, M, N0, N1,
-# n_haps, pairs_per_warp; l_mm, l_gm, l_go, l_ge, l_ins; stream
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
+# hap_len1, out, terms0, terms1, scratch, lane_steps; scratch_bytes; B, M,
+# N0, N1, n_haps, pairs_per_warp; l_mm, l_gm, l_go, l_ge, l_ins; stream
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong]
              + [ctypes.c_int] * 6 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 
 
@@ -118,10 +121,12 @@ def check_inputs(reads, read_lens, quals, table, haps, gaps) -> list:
 
 
 def launch(fn, scratch_bytes, reads, read_lens, quals, table, haps, gaps,
-           out, terms, K: int, stream) -> None:
+           out, terms, K: int, stream, lane_steps=None) -> None:
     """One call of B6's C entry ``fn`` on these tensors (on the device that
     ``fn`` runs on), with the scratch that ``scratch_bytes`` (the source's
-    focalsv_pairhmm_scratch_bytes) asks for; raises on a refusal."""
+    focalsv_pairhmm_scratch_bytes) asks for; ``lane_steps`` a (1,) int64
+    tensor that the launch adds its lane-steps to, or None; raises on a
+    refusal."""
     B, M = reads.shape
     widths = [int(h.shape[1]) for h, _ in haps]
     n1 = widths[1] if len(widths) == 2 else 0
@@ -142,8 +147,9 @@ def launch(fn, scratch_bytes, reads, read_lens, quals, table, haps, gaps,
     err = fn(reads.data_ptr(), read_lens.data_ptr(),
              quals.data_ptr() if quals is not None else None,
              table.data_ptr(), *args, out.data_ptr(), *term_ptrs,
-             scratch.data_ptr() if scratch is not None else None, need, B,
-             M, widths[0], n1, len(haps), K, *map(float, gaps), stream)
+             scratch.data_ptr() if scratch is not None else None,
+             lane_steps.data_ptr() if lane_steps is not None else None, need,
+             B, M, widths[0], n1, len(haps), K, *map(float, gaps), stream)
     if err != 0:
         raise RuntimeError(f"pair-HMM kernel launch failed with CUDA error "
                            f"{err} (B={B}, M={M}, N={widths}, "
@@ -151,7 +157,8 @@ def launch(fn, scratch_bytes, reads, read_lens, quals, table, haps, gaps,
 
 
 def pairhmm_cuda(reads, read_lens, quals, table, haps, gaps,
-                 want_terms: bool = False, pairs_per_warp: int | None = None):
+                 want_terms: bool = False, pairs_per_warp: int | None = None,
+                 lane_steps: torch.Tensor | None = None):
     """log P(read | hap) (n_haps, B) float32 of B read windows against each
     of ``haps``, and the per-diagonal terms (a list of (B, M + N_h) float32,
     or None without ``want_terms``), as
@@ -163,12 +170,16 @@ def pairhmm_cuda(reads, read_lens, quals, table, haps, gaps,
     hap_len (B,) int32) pairs; gaps the float32 log probabilities (l_mm,
     l_gm, l_go, l_ge, l_ins).  All contiguous on one CUDA device.
     ``pairs_per_warp``: the (read, window) pairs a warp takes
-    (``choose_pairs_per_warp(B)`` when None)."""
+    (``choose_pairs_per_warp(B)`` when None).  ``lane_steps``: a (1,) int64
+    tensor on the device to which the launch adds the lane-steps it took
+    (32 times each warp's steps, idle lanes included), or None."""
     global launches, windows
     device = reads.device
     if device.type != "cuda":
         raise ValueError(f"pairhmm_cuda needs CUDA tensors, got {device}")
     widths = check_inputs(reads, read_lens, quals, table, haps, gaps)
+    if lane_steps is not None:
+        _check("lane_steps", lane_steps, torch.int64, (1,), device)
     B, M = reads.shape
     K = (choose_pairs_per_warp(B) if pairs_per_warp is None
          else int(pairs_per_warp))
@@ -181,7 +192,7 @@ def pairhmm_cuda(reads, read_lens, quals, table, haps, gaps,
     with torch.cuda.device(device):
         launch(fn, _library().focalsv_pairhmm_scratch_bytes, reads,
                read_lens, quals, table, haps, gaps, out, terms, K,
-               torch.cuda.current_stream(device).cuda_stream)
+               torch.cuda.current_stream(device).cuda_stream, lane_steps)
     with _lock:
         launches += 1
         windows += B * len(haps)

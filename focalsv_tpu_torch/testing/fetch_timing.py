@@ -54,33 +54,26 @@ def fetch_per_chunk(reader: bamio.BamReader, chrom: str, start: int,
 
 def write_chromosome(work: str, n_regions: int = 32) -> tuple[str, list]:
     """The chromosome BAM of chip_smoke.py's phase 6 and its region queries
-    (each region less 100 columns at either end, as its BED has them); its
-    reference and the BED go beside it as ref.fa and regions.bed."""
-    from focalsv_tpu_torch.io.fasta import write_fasta
+    (each region less 100 columns at either end, as its BED has them)."""
     from focalsv_tpu_torch.testing import simulate as sim
     bam_path = os.path.join(work, "reads.bam")
     lens = [SIZE_MIX[i % len(SIZE_MIX)] for i in range(n_regions)]
     offs = np.cumsum([0] + lens)
-    queries = [("chr21", int(offs[i]) + 100, int(offs[i + 1]) - 100)
-               for i in range(n_regions)]
     if not os.path.exists(bam_path + ".bai"):
-        recs, ref = [], []
+        recs = []
         for i, n in enumerate(lens):
             rg = sim.simulate_region(seed=1000 + i, ref_len=n, coverage=30.0,
                                      n_snps=max(10, n // 1200))
             recs += [dataclasses.replace(r, pos=r.pos + int(offs[i]))
                      for r in rg.reads]
-            ref.append(rg.ref)
         recs.sort(key=lambda r: r.pos)
         w = bamio.BamWriter(bam_path, ["chr21"], [int(offs[-1])])
         for r in recs:
             w.write(r)
         w.close()
         bamio.build_bai(bam_path)
-        write_fasta(os.path.join(work, "ref.fa"),
-                    [("chr21", np.concatenate(ref))])
-        with open(os.path.join(work, "regions.bed"), "w") as f:
-            f.write("".join(f"{c}\t{a}\t{b}\n" for c, a, b in queries))
+    queries = [("chr21", int(offs[i]) + 100, int(offs[i + 1]) - 100)
+               for i in range(n_regions)]
     return bam_path, queries
 
 

@@ -178,7 +178,8 @@ def rows_plan(*, G: int, R: int, L: int, W: int, max_sites: int,
 
 def pairhmm(reads, read_lens, haps, quals=None, max_read: int | None = None,
             gap_open: float = 1e-3, gap_extend: float = 0.1,
-            pairs_per_warp: int | None = None, smem_bytes: int = 232448):
+            pairs_per_warp: int | None = None, smem_bytes: int = 232448,
+            lane_steps: torch.Tensor | None = None):
     """B6 run on the CPU: log P(read | hap) (n_haps, B) float32 of the read
     windows against each of ``haps`` (one or two (hap (B, N) uint8,
     hap_len (B,)) pairs) in one launch, and the (B, M + N_h) per-diagonal
@@ -186,7 +187,8 @@ def pairhmm(reads, read_lens, haps, quals=None, max_read: int | None = None,
     (``ops/pairhmm.py::kernel_inputs``: the emission table from the plain
     version's own torch ops); ``pairs_per_warp`` as the wrapper chooses it
     when None; ``smem_bytes`` the stand-in card's shared memory a block
-    (less moves the workspaces to scratch).  Raises where the kernel
+    (less moves the workspaces to scratch); ``lane_steps`` a (1,) int64
+    tensor that the launch adds its lane-steps to.  Raises where the kernel
     refuses them."""
     reads = np.asarray(reads)
     B = reads.shape[0]
@@ -202,7 +204,8 @@ def pairhmm(reads, read_lens, haps, quals=None, max_read: int | None = None,
     with _smem(lib, smem_bytes):
         pairhmm_cuda.launch(lib.focalsv_pairhmm,
                             lib.focalsv_pairhmm_scratch_bytes, reads_t, rlen,
-                            quals_t, table, haps_t, gaps, out, terms, K, None)
+                            quals_t, table, haps_t, gaps, out, terms, K, None,
+                            lane_steps)
     return out.numpy(), [t.numpy() for t in terms]
 
 

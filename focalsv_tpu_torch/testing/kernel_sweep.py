@@ -47,19 +47,21 @@ device; exits 1 without one.
 
 ``--b6-only`` times B6 (the pair-HMM forward pass) on batches shaped as the
 realignment's calls (testing/pairhmm_cases.py::path_like: reads of 21 bases
-against windows of 25, padded to 29) at 1 and 528 reads and at the sizes of
-the smallest, the median and the largest of chip_smoke.py phase 9c's calls
-(278, 967 and 2,605 reads), and at phase 9a's synthetic shapes, with the
-(read, window) pairs a warp that the wrapper chooses and with 1, 2, 4 and 8,
-each held to the plain version (terms byte for byte); ``--against DIR`` also
-builds DIR's focalsv_tpu_torch/csrc/pairhmm.cu (another checkout whose entry
-takes emissions by position, as the earlier source's does) and times both on
-the same inputs in turns (this, other, other, this), held against each
-other: terms byte for byte, results within 1e-5. Then each checkout's entry
-from numpy (site_allele_loglik: copies, launch, checks) at the path-shaped
-sizes by the host clock, each in a process of its own, in the same turns;
-and run_target_mode with use_pairhmm=True on chip_smoke.py's 32 HiFi regions
-in each checkout (regions/s and finish thread-seconds), in turns.
+against windows of 25, padded to 29) at 1, 528 and 800 reads (800: where the
+wrapper goes from one pair a warp to two) and at the sizes of the smallest,
+the median and the largest of chip_smoke.py phase 9c's calls (278, 967 and
+2,605 reads), and at phase 9a's synthetic shapes, with 1, 2, 4 and 8 (read,
+window) pairs a warp, each held to the plain version (terms byte for byte),
+with the lane-steps a pair that B6 counts at each; then one pair a warp
+against two from 600 to 1,100 reads (B6_CUT_SCAN).  ``--against DIR`` runs
+B6 of the checkout at DIR and of this one, each through its own wrapper
+(pairhmm.kernel_inputs, then pairhmm_cuda.pairhmm_cuda) in a process of its
+own, on the same inputs in turns (this, other, other, this), held against
+each other: terms byte for byte, results within 1e-5.  Then each checkout's
+entry from numpy (site_allele_loglik: copies, launch, checks) at the
+path-shaped sizes by the host clock, in the same turns; and run_target_mode
+with use_pairhmm=True on chip_smoke.py's 32 HiFi regions (its simulation and
+writer) in each checkout (regions/s and finish thread-seconds), in turns.
 
 Every time here is taken with the calls queued behind a sleep of the
 stream (time_ms), so it is the card's time alone; chip_smoke.py's ``ms``
@@ -74,6 +76,7 @@ import ctypes
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -107,72 +110,57 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-# a lone read, a warp a scheduler (528), and the smallest, median and
-# largest of chip_smoke.py phase 9c's calls
-B6_PATH_SIZES = (1, 278, 528, 967, 2605)
+# a lone read, a warp a scheduler (528), the wrapper's cut from one pair a
+# warp to two (800), and the smallest, median and largest of chip_smoke.py
+# phase 9c's calls
+B6_PATH_SIZES = (1, 278, 528, 800, 967, 2605)
 B6_PAIRS_A_WARP = (1, 2, 4, 8)
+# batches of the path's shape around the wrapper's cut from one pair a warp
+# to two (pairhmm_cuda.PAIRS_BY_BATCH)
+B6_CUT_SCAN = tuple(range(600, 1101, 50))
+
+# times B6 through a checkout's own wrapper (pairhmm.kernel_inputs, then
+# pairhmm_cuda.pairhmm_cuda: the entries that this checkout and the one
+# before B6's redesign share) on the card: argv is an output .npz, then the
+# cases' .npz files; writes each case's results and terms to the output and
+# prints {case: ms a launch, queued behind a sleep of the stream} as JSON
+KERNEL_TIMING = """
+import json, os, sys
+import numpy as np, torch
+from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
+dev = torch.device("cuda")
 
 
-def other_pairhmm(tree: str):
-    """B6 of another checkout whose entry takes emissions by position (the
-    earlier source's), built from its csrc/pairhmm.cu alone: a function
-    (case, its inputs on the card) -> a function that launches it once on
-    them and returns (out (n_haps, B), terms)."""
-    from focalsv_tpu_torch.ops import pairhmm
-    src = Path(tree) / "focalsv_tpu_torch" / "csrc" / "pairhmm.cu"
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = _build.BUILD_DIR / f"libfocalsv_pairhmm_{tag}.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    if not so.exists():
-        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                              "-o", str(so), str(src)],
-                             capture_output=True, text=True)
-        for line in (res.stdout + res.stderr).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {tree}: {line.strip()}", flush=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
-    lib = ctypes.CDLL(str(so))
-    dev = torch.device("cuda")
-    fn = lib.focalsv_pairhmm
-    fn.argtypes = ([ctypes.c_void_p] * 4
-                   + ([ctypes.c_void_p] * 4 + [ctypes.c_int]) * 2
-                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+def queued_ms(fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
-    def prepare(case, args):
-        reads, rlen, quals, table, haps, gaps = args
-        B, M = reads.shape
-        q = (None if case["quals"] is None
-             else torch.from_numpy(np.asarray(case["quals"], np.int32)
-                                   [:, :M].copy()).to(dev))
-        lm_match, lm_mis = pairhmm._emissions(q, B, M, dev)
 
-        def run():
-            out = torch.empty((len(haps), B), dtype=torch.float32,
-                              device=dev)
-            terms = [torch.empty((B, M + h.shape[1]), dtype=torch.float32,
-                                 device=dev) for h, _ in haps]
-            ptrs = []
-            for h in range(2):
-                if h < len(haps):
-                    ptrs += [haps[h][0].data_ptr(), haps[h][1].data_ptr(),
-                             out[h].data_ptr(), terms[h].data_ptr(),
-                             haps[h][0].shape[1]]
-                else:
-                    ptrs += [None, None, None, None, 0]
-            err = fn(reads.data_ptr(), rlen.data_ptr(), lm_match.data_ptr(),
-                     lm_mis.data_ptr(), *ptrs, B, M, len(haps),
-                     *map(float, gaps),
-                     torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"{tree}'s B6 failed with CUDA error "
-                                   f"{err}")
-            return out, terms
-        return run
-    return prepare
-
+times, results = {}, {}
+for path in sys.argv[2:]:
+    name = os.path.basename(path)[:-4]
+    z = np.load(path)
+    haps = [(z[h], z[h + "_lens"], z[h].shape[1]) for h in ("ref", "alt")]
+    args = pairhmm.kernel_inputs(z["reads"], z["read_lens"], haps,
+                                 z["quals"] if "quals" in z else None,
+                                 z["reads"].shape[1], dev)
+    out, terms = pairhmm_cuda.pairhmm_cuda(*args, want_terms=True)
+    results[name + "/out"] = out.cpu().numpy()
+    for h, t in enumerate(terms):
+        results[f"{name}/terms{h}"] = t.cpu().numpy()
+    times[name] = queued_ms(lambda: pairhmm_cuda.pairhmm_cuda(*args))
+np.savez(sys.argv[1], **results)
+print(json.dumps(times))
+"""
 
 # times site_allele_loglik (B6's entry from numpy) in a checkout: argv is
 # the inputs' .npz files; prints {B: host ms a call} as JSON
@@ -196,34 +184,77 @@ print(json.dumps(times))
 """
 
 
-def entry_ms(tree: str, files: list) -> dict:
-    """Host ms a call of site_allele_loglik (copies in and out, the launch,
-    the wrapper's checks) in the checkout at ``tree``, a process of its
-    own, on each of ``files``' inputs."""
+def in_checkout(tree: str, script: str, *argv: str) -> str:
+    """The standard output of ``script`` run by Python in the checkout at
+    ``tree`` (its package first on the path), a process of its own."""
     env = dict(os.environ, PYTHONPATH=str(Path(tree).resolve()))
-    res = subprocess.run([sys.executable, "-c", ENTRY_TIMING, *files],
-                         cwd=tree, env=env, capture_output=True, text=True)
+    res = subprocess.run([sys.executable, "-c", script, *argv], cwd=tree,
+                         env=env, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"entry timing failed in {tree}:\n{res.stderr}")
-    return json.loads(res.stdout.strip().splitlines()[-1])
+        raise RuntimeError(f"timing failed in {tree}:\n{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def b6_case_file(name: str, case: dict) -> str:
+    """``case`` (two windows, the default gap costs) as an .npz file that
+    KERNEL_TIMING and ENTRY_TIMING read."""
+    (ref, rl), (alt, al) = case["haps"]
+    assert case["reads"].shape[1] == case["max_read"]
+    assert case["gaps"] == dict(gap_open=1e-3, gap_extend=0.1)
+    path = _build.BUILD_DIR / "b6_cases" / f"{name}.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    extra = {} if case["quals"] is None else dict(quals=case["quals"])
+    np.savez(path, reads=case["reads"], read_lens=case["read_lens"], ref=ref,
+             ref_lens=rl, alt=alt, alt_lens=al, **extra)
+    return str(path)
+
+
+def b6_against(against: str, shapes: list) -> bool:
+    """B6 of this checkout and of the one at ``against``, each through its
+    own wrapper in a process of its own (KERNEL_TIMING), in turns (this,
+    other, other, this) on ``shapes``: ms a launch queued, and the other's
+    results held to this one's (terms byte for byte, results within 1e-5,
+    -inf at the same places)."""
+    from focalsv_tpu_torch.testing import pairhmm_cases
+    files = [b6_case_file(name, case) for name, case in shapes]
+    here = str(_build.PKG.parent)
+    outs = [str(_build.BUILD_DIR / "b6_cases" / f"turn{i}.npz")
+            for i in range(4)]
+    runs = [json.loads(in_checkout(tree, KERNEL_TIMING, out, *files)
+                       .strip().splitlines()[-1])
+            for tree, out in zip([here, against, against, here], outs)]
+    mine, other = np.load(outs[0]), np.load(outs[1])
+    ok = True
+    for name, case in shapes:
+        n = len(case["haps"])
+        d = pairhmm_cases.differences(
+            (other[f"{name}/out"], [other[f"{name}/terms{h}"]
+                                    for h in range(n)]),
+            (mine[f"{name}/out"], [mine[f"{name}/terms{h}"]
+                                   for h in range(n)]))
+        same = d["terms_bytes_equal"] and d["same_inf"] and \
+            d["out_err"] <= 1e-5
+        k1, o1, o2, k2 = (r[name] for r in runs)
+        print(f"[b6-against] {name} in turns, each checkout's own wrapper: "
+              f"this_ms={(k1 + k2) / 2:.4f} ({k1:.4f},{k2:.4f}) "
+              f"against_ms={(o1 + o2) / 2:.4f} ({o1:.4f},{o2:.4f}) "
+              f"this_over_against={(k1 + k2) / (o1 + o2):.3f} "
+              f"equals_against={same} (max_abs_err {d['out_err']:.3g})",
+              flush=True)
+        ok = ok and same
+    return ok
 
 
 def b6_entry_sweep(against: str | None) -> None:
     """B6's entry from numpy at the path-shaped sizes, this checkout's and
     (with ``against``) the other's, in turns (this, other, other, this)."""
     from focalsv_tpu_torch.testing import pairhmm_cases
-    files = []
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for B in B6_PATH_SIZES:
-        c = pairhmm_cases.path_like(11, B)
-        (ref, rl), (alt, al) = c["haps"]
-        path = _build.BUILD_DIR / f"b6_entry_B{B}.npz"
-        np.savez(path, reads=c["reads"], read_lens=c["read_lens"], ref=ref,
-                 ref_lens=rl, alt=alt, alt_lens=al, quals=c["quals"])
-        files.append(str(path))
+    files = [b6_case_file(f"path_like_B{B}", pairhmm_cases.path_like(11, B))
+             for B in B6_PATH_SIZES]
     here = str(_build.PKG.parent)
     turns = [here] + ([against, against] if against else []) + [here]
-    runs = [entry_ms(tree, files) for tree in turns]
+    runs = [json.loads(in_checkout(tree, ENTRY_TIMING, *files)
+                       .strip().splitlines()[-1]) for tree in turns]
     for B in B6_PATH_SIZES:
         k = str(B)
         line = (f"[b6-entry] path_like_B{B} site_allele_loglik host ms a "
@@ -265,26 +296,27 @@ print(json.dumps(runs))
 
 def b6_target_mode_sweep(against: str) -> None:
     """run_target_mode with use_pairhmm=True on chip_smoke.py's 32 HiFi
-    regions (fetch_timing.write_chromosome), this checkout and the other,
+    regions (its own simulation and writer), this checkout and the other,
     each in processes of its own, in turns: regions/s and finish
     thread-seconds."""
-    from focalsv_tpu_torch.testing.fetch_timing import write_chromosome
-    work = _build.BUILD_DIR / "b6_target_mode"
-    work.mkdir(parents=True, exist_ok=True)
-    bam, queries = write_chromosome(str(work))
+    import importlib.util
     here = str(_build.PKG.parent)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(here) / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    work = _build.BUILD_DIR / "b6_target_mode"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    bam, fasta, beds = smoke.write_chromosome(
+        smoke._simulate(smoke.N_REGIONS), str(work))
+    bed = beds[smoke.N_REGIONS]
     for i, tree in enumerate([here, against, against, here]):
-        env = dict(os.environ, PYTHONPATH=str(Path(tree).resolve()))
-        res = subprocess.run(
-            [sys.executable, "-c", TARGET_TIMING, bam, str(work / "ref.fa"),
-             str(work / "regions.bed"), str(work / f"out{i}_")],
-            cwd=tree, env=env, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"use_pairhmm run failed in {tree}:\n"
-                               f"{res.stderr[-3000:]}")
-        runs = json.loads(res.stdout.strip().splitlines()[-1])
+        runs = json.loads(in_checkout(
+            tree, TARGET_TIMING, bam, fasta, bed, str(work / f"out{i}_"))
+            .strip().splitlines()[-1])
         print(f"[b6-target] {'this' if tree == here else 'against'} "
-              f"use_pairhmm=True {len(queries)} HiFi regions: regions/s "
+              f"use_pairhmm=True {smoke.N_REGIONS} HiFi regions: regions/s "
               + ", ".join(f"{r['rps']:.3f}" for r in runs)
               + " finish_s " + ", ".join(f"{r['finish_s']:.2f}" for r in runs),
               flush=True)
@@ -292,12 +324,12 @@ def b6_target_mode_sweep(against: str) -> None:
 
 def b6_sweep(against: str | None) -> bool:
     """B6 on path-shaped batches and phase 9a's shapes: against its plain
-    version, with each reads-a-warp setting, and (with ``against``)
-    against another checkout's B6 in turns."""
+    version, with each pairs-a-warp setting (ms queued, and the lane-steps
+    a pair that B6 counts), and (with ``against``) against another
+    checkout's B6 in turns (b6_against)."""
     from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
     from focalsv_tpu_torch.testing import pairhmm_cases
     dev = torch.device("cuda")
-    other = other_pairhmm(against) if against else None
     shapes = [(f"path_like_B{B}", pairhmm_cases.path_like(11, B))
               for B in B6_PATH_SIZES]
     shapes += [(name, build(9))
@@ -316,41 +348,57 @@ def b6_sweep(against: str | None) -> bool:
         same = d["terms_bytes_equal"] and d["same_inf"] and \
             d["out_err"] <= 1e-5
         K0 = pairhmm_cuda.choose_pairs_per_warp(B)
-        widths = [hap.shape[1] for hap, _ in case["haps"]]
-        steps = {K: pairhmm_cases.lane_steps(
-            case["read_lens"], [hl for _, hl in case["haps"]],
-            case["max_read"], widths, K) / (B * len(widths))
-            for K in sorted({K0, *B6_PAIRS_A_WARP})}
+        pairs = B * len(case["haps"])
 
-        def this(K=None):
+        def this(K=None, counter=None):
+            return pairhmm_cuda.pairhmm_cuda(*args, pairs_per_warp=K,
+                                             lane_steps=counter)
+
+        steps = {}
+        for K in B6_PAIRS_A_WARP:
+            counter = torch.zeros(1, dtype=torch.int64, device=dev)
+            this(K, counter)
+            steps[K] = int(counter.item()) / pairs
+        by_K = {K: time_ms(lambda: this(K), 20) for K in B6_PAIRS_A_WARP}
+        print(f"[b6] {name} B={B} M={case['max_read']} "
+              f"N={[hap.shape[1] for hap, _ in case['haps']]} "
+              f"equals_plain={same} (max_abs_err {d['out_err']:.3g}) "
+              f"pairs_a_warp={K0} lane_steps_a_pair (counted) "
+              + " ".join(f"K{K}={v:.1f}" for K, v in steps.items())
+              + " ms_by_pairs_a_warp "
+              + " ".join(f"K{K}={v:.4f}" for K, v in by_K.items()),
+              flush=True)
+        ok = ok and same
+    b6_cut_scan()
+    if against:
+        ok = b6_against(against, shapes) and ok
+    return ok
+
+
+def b6_cut_scan() -> None:
+    """B6 at one and at two pairs a warp on batches of the path's shape
+    from 600 to 1,100 reads (B6_CUT_SCAN), queued, in turns: where the
+    wrapper's cut from one to two (pairhmm_cuda.PAIRS_BY_BATCH) belongs."""
+    from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
+    from focalsv_tpu_torch.testing import pairhmm_cases
+    dev = torch.device("cuda")
+    for B in B6_CUT_SCAN:
+        case = pairhmm_cases.path_like(11, B)
+        args = pairhmm.kernel_inputs(
+            case["reads"], case["read_lens"],
+            [(hap, hl, hap.shape[1]) for hap, hl in case["haps"]],
+            case["quals"], case["max_read"], dev, **case["gaps"])
+
+        def run(K):
             return pairhmm_cuda.pairhmm_cuda(*args, pairs_per_warp=K)
 
-        by_K = {K: time_ms(lambda: this(K), 20) for K in B6_PAIRS_A_WARP}
-        line = (f"[b6] {name} B={B} M={case['max_read']} N={widths} "
-                f"equals_plain={same} (max_abs_err {d['out_err']:.3g}) "
-                f"pairs_a_warp={K0} lane_steps_a_pair "
-                + " ".join(f"K{K}={v:.1f}" for K, v in steps.items())
-                + " ms_by_pairs_a_warp "
-                + " ".join(f"K{K}={v:.4f}" for K, v in by_K.items()))
-        if other is not None:
-            run_other = other(case, args)
-            o_out, o_terms = run_other()
-            o = (o_out.cpu().numpy(), [t.cpu().numpy() for t in o_terms])
-            do = pairhmm_cases.differences(got, o)
-            same_o = do["terms_bytes_equal"] and do["same_inf"] and \
-                do["out_err"] <= 1e-5
-            k1 = time_ms(this, 20)
-            o1 = time_ms(run_other, 20)
-            o2 = time_ms(run_other, 20)
-            k2 = time_ms(this, 20)
-            line += (f" | in turns: this_ms={(k1 + k2) / 2:.4f} "
-                     f"({k1:.4f},{k2:.4f}) against_ms={(o1 + o2) / 2:.4f} "
-                     f"({o1:.4f},{o2:.4f}) this_over_against="
-                     f"{(k1 + k2) / (o1 + o2):.3f} equals_against={same_o}")
-            same = same and same_o
-        print(line, flush=True)
-        ok = ok and same
-    return ok
+        a1, b1 = time_ms(lambda: run(1), 20), time_ms(lambda: run(2), 20)
+        b2, a2 = time_ms(lambda: run(2), 20), time_ms(lambda: run(1), 20)
+        one, two = (a1 + a2) / 2, (b1 + b2) / 2
+        print(f"[b6-cut] path_like_B{B} ms queued: 1 pair a warp {one:.4f} "
+              f"({a1:.4f},{a2:.4f}), 2 pairs {two:.4f} ({b1:.4f},{b2:.4f}); "
+              f"two_over_one={two / one:.3f}; the wrapper takes "
+              f"{pairhmm_cuda.choose_pairs_per_warp(B)}", flush=True)
 
 
 def smem_load_to_use() -> tuple[float, float]:

@@ -225,7 +225,8 @@ def test_site_allele_loglik_is_one_launch_on_card(cuda):
 @pytest.mark.cuda
 def test_site_allele_loglik_after_the_first_is_one_launch(cuda):
     """A call after the device's first (which builds the emission table)
-    adds exactly one launch of B6 and calls the plain version not at all."""
+    adds exactly one launch of B6 and two copies (in and out), and calls
+    the plain version not at all."""
     case = pairhmm_cases.build("realign")
     (ref, rhl), (alt, ahl) = case["haps"]
     args = (case["reads"], case["read_lens"], ref, rhl, alt, ahl,
@@ -233,8 +234,10 @@ def test_site_allele_loglik_after_the_first_is_one_launch(cuda):
     first = pairhmm.site_allele_loglik(*args, device=cuda)
     table = pairhmm.emission_table(cuda)
     before, plain_before = pairhmm_cuda.launches, pairhmm.plain_calls
+    copies = pairhmm.copies
     again = pairhmm.site_allele_loglik(*args, device=cuda)
     assert pairhmm_cuda.launches == before + 1
+    assert pairhmm.copies == copies + 2
     assert pairhmm.plain_calls == plain_before
     assert pairhmm.emission_table(cuda) is table
     for a, f in zip(again, first):
@@ -275,6 +278,27 @@ def test_pairhmm_kernel_takes_any_width(cuda, name):
     assert d["terms_bytes_equal"] and d["same_inf"], d
     assert d["out_err"] <= 1e-5, d
     assert np.isfinite(got[0]).sum() >= got[0].size // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs_per_warp", [1, 2, 4])
+def test_pairhmm_kernel_counts_its_lane_steps(cuda, pairs_per_warp):
+    """The lane-steps B6 adds to its counter on the card are those that
+    ``pairhmm_cases.lane_steps`` reckons (the CPU test holds the source's
+    host build to the same)."""
+    for name in ("realign", "odd_lens", "wide_300x320"):
+        case = pairhmm_cases.build(name)
+        (ref, rhl), (alt, ahl) = case["haps"]
+        args = pairhmm.kernel_inputs(
+            case["reads"], case["read_lens"],
+            [(ref, rhl, ref.shape[1]), (alt, ahl, alt.shape[1])],
+            case["quals"], case["max_read"], cuda, **case["gaps"])
+        counted = torch.zeros(1, dtype=torch.int64, device=cuda)
+        pairhmm_cuda.pairhmm_cuda(*args, pairs_per_warp=pairs_per_warp,
+                                  lane_steps=counted)
+        assert int(counted[0]) == pairhmm_cases.lane_steps(
+            case["read_lens"], [rhl, ahl], case["max_read"],
+            [ref.shape[1], alt.shape[1]], pairs_per_warp), name
 
 
 @pytest.mark.cuda

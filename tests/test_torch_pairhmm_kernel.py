@@ -125,6 +125,23 @@ def test_kernel_source_takes_any_width():
         assert d["terms_err"] <= HOST_ATOL and d["out_err"] <= HOST_ATOL, d
 
 
+@pytest.mark.parametrize("pairs_per_warp", [1, 2, 4])
+def test_kernel_source_counts_its_lane_steps(pairs_per_warp):
+    """The lane-steps that B6's source adds to its counter (32 times each
+    warp's steps) are those that ``pairhmm_cases.lane_steps`` reckons from
+    the windows: on reads of one strip and of several, with out-of-range
+    lengths, at this many pairs a warp."""
+    for name in ("realign", "odd_lens", "end_inf", "wide_95x96"):
+        case = dict(pairhmm_cases.build(name), pairs_per_warp=pairs_per_warp)
+        counted = torch.zeros(1, dtype=torch.int64)
+        pairhmm_cases.host(case, lane_steps=counted)
+        widths = [hap.shape[1] for hap, _ in case["haps"]]
+        want = pairhmm_cases.lane_steps(
+            case["read_lens"], [hl for _, hl in case["haps"]],
+            case["max_read"], widths, pairs_per_warp)
+        assert want > 0 and int(counted[0]) == want, name
+
+
 def test_emission_table_equals_elementwise():
     """B6's emission table, indexed by the quality clamped to [0, 255]
     (``qual_bytes``), gives the bytes of the plain version's elementwise
