@@ -101,13 +101,27 @@ on the card in phases, and exits non-zero at the first phase that fails:
    cards, else gloo with both ranks on the one card) against the file merge
    of two in-process hosts; and NCCL
    at world size 1 (initialize, an all_gather of phase 6's record payload,
-   shutdown).
+   shutdown);
+12. auto mode through the port's CLI (--auto): bench_auto.py's genome of two
+   10 Mb chromosomes at 30x HiFi with 9 SVs a Mb and a prior VCF
+   (testing/auto_cases.py), and one 2 Mb CLR chromosome without a prior, in
+   device mode on the card and in host mode: the native step-0 scan over
+   every chromosome, region detection, the BED, then target mode over each
+   chromosome and the merged VCF.  The BED, the merged VCF and each
+   chromosome's VCF of the device run must equal the host run's byte for
+   byte, the scan must have been the native one, B2 must have launched, and
+   the native scan's signatures must equal the Python scan's on every
+   chromosome; step 0 by part, target mode by chromosome (stage seconds,
+   chunks, host fallbacks, bytes, busy seconds), the buckets hit with B2's
+   or B3's launch plan, the tiles by encoding, peak host RSS, the card's
+   peak allocation and recall, precision and F1 against the truth are
+   printed, not gated.
 
 Phase 4 also prints the region step's card time by kernel name for one
 delta and one rows chunk (torch.profiler); each must take at most 5
 launches and copies.  B2's and B3's launches are read from their counts on
-every path that runs the region step (phases 4, 5, 6, 6b, 7 and 11), B6's
-on each run of phase 9b.  The
+every path that runs the region step (phases 4, 5, 6, 6b, 7, 11 and 12),
+B6's on each run of phases 9b and 12.  The
 script runs unchanged on a machine with several cards: phase 11's mesh and
 ranks take a card each.
 
@@ -2137,6 +2151,309 @@ def multi_device(rng, jobs, main_path, work: str) -> dict:
             "target_mode_through_mesh": through_mesh}
 
 
+# -- phase 12 ---------------------------------------------------------------
+
+# auto mode's genome: two chromosomes of 10 Mb at 30x HiFi with 9 SVs a Mb
+# (the reference's HG002 HiFi auto BED holds 26,834 regions over some 3.1
+# Gb, 8.7 a Mb), cut from a chr21-sized chromosome (46.7 Mb) to fit the
+# run's time; a prior with a record at each true SV and a decoy a Mb.  The
+# CLR genome, one chromosome of 2 Mb at the same density and no prior,
+# takes the branch in which detection's min_sig follows the coverage.
+AUTO_N_CHROMS = 2
+AUTO_CHROM_LEN = 10_000_000
+AUTO_SVS_PER_MB = 9
+AUTO_CLR_CHROM_LEN = 2_000_000
+
+
+def auto_genome(work: str, dtype: str, n_chroms: int, chrom_len: int,
+                prior: bool) -> dict:
+    """bench_auto.py's genome (testing/auto_cases.py), with a prior."""
+    from focalsv_tpu_torch.testing import auto_cases
+    d = os.path.join(work, f"auto_{dtype.lower()}")
+    os.makedirs(d)
+    n_svs = AUTO_SVS_PER_MB * chrom_len // 1_000_000
+    t0 = time.perf_counter()
+    bam, fa, truth = auto_cases.build_genome(d, n_chroms, chrom_len,
+                                             COVERAGE, n_svs, dtype)
+    secs = time.perf_counter() - t0
+    g = dict(dtype=dtype, bam=bam, fasta=fa, truth=truth, prior=None,
+             chrom_lens={f"chr{i + 1}": chrom_len for i in range(n_chroms)})
+    n_prior = 0
+    if prior:
+        g["prior"] = os.path.join(d, "prior.vcf")
+        n_prior = auto_cases.write_prior(g["prior"], truth, g["chrom_lens"])
+    log(f"[auto] {dtype} genome: {n_chroms} x {chrom_len} bp at {COVERAGE}x, "
+        f"{len(truth)} SVs, built in {secs:.1f} s, BAM "
+        f"{os.path.getsize(bam) / 1e6:.1f} MB, prior "
+        f"{f'{n_prior} records' if prior else 'none'}")
+    return g
+
+
+def _rss_mb() -> float:
+    """This process's resident size now (/proc/self/status, VmRSS), MB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise RuntimeError("/proc/self/status has no VmRSS line")
+
+
+@contextlib.contextmanager
+def sampled_peak_rss(out: dict, every_s: float = 0.05):
+    """This process's resident size at the start of the span and the
+    largest over it, sampled every ``every_s`` by a thread (ru_maxrss
+    covers the process's whole life, earlier phases included)."""
+    import threading
+    stop = threading.Event()
+    out["start_rss_mb"] = _rss_mb()
+
+    def sample():
+        while True:
+            out["peak_rss_mb"] = max(out.get("peak_rss_mb", 0.0), _rss_mb())
+            if stop.wait(every_s):
+                return
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+
+
+@contextlib.contextmanager
+def auto_spans(seen: dict):
+    """Time step 0's parts and record each device chunk and tile of one
+    auto run, by wrapping the functions that run_auto_mode and
+    streamed_map call (restored on the way out)."""
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    from focalsv_tpu_torch.pipeline import main
+    from focalsv_tpu_torch.scan import fast_scan
+    from focalsv_tpu_torch.utils import coverage
+    seen.update(spans={}, chunks=[], tiles={}, target_start=None)
+
+    def timed(mod, name, span):
+        real = getattr(mod, name)
+
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                seen["spans"][span] = (seen["spans"].get(span, 0.0)
+                                       + time.perf_counter() - t0)
+        return mod, name, wrapper
+
+    real_target = main.run_target_mode
+
+    def target(*args, **kw):
+        seen["target_start"] = time.perf_counter()
+        return real_target(*args, **kw)
+
+    real_dispatch = dx._dispatch_one
+
+    def dispatch(tiles, chunk, key, G, cfg, device, mesh=None):
+        seen["chunks"].append((key, G, len(chunk), cfg))
+        return real_dispatch(tiles, chunk, key, G, cfg, device, mesh)
+
+    real_key = dx._bucket_key
+
+    def bucket_key(tile, cfg):
+        key = real_key(tile, cfg)
+        kind = "host" if key is None else key[0]
+        seen["tiles"][kind] = seen["tiles"].get(kind, 0) + 1
+        return key
+
+    patches = [timed(fast_scan, "scan_bam_native", "native_scan"),
+               timed(coverage, "estimate_bam_cov", "coverage"),
+               timed(main, "detect_regions", "detect"),
+               timed(main, "write_bed", "bed"),
+               (main, "run_target_mode", target),
+               (dx, "_dispatch_one", dispatch),
+               (dx, "_bucket_key", bucket_key)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def auto_run(g: dict, out: str, mode: str) -> dict:
+    """One run of the port's CLI with --auto over genome g, with the
+    kernels' counts set to 0 just before it and read just after.  The
+    native scan's cache is cleared first, so that each run pays for its own
+    scan."""
+    import io
+    import resource
+    from contextlib import redirect_stdout
+
+    from focalsv_tpu_torch.ops import align_cuda, pairhmm_cuda, region_cuda
+    from focalsv_tpu_torch.pipeline import cli, main
+    argv = ["--bam_file", g["bam"], "--ref_file", g["fasta"], "--out_dir",
+            out, "--data_type", g["dtype"], "--auto", "--execution", mode,
+            "--num_threads", "8"]
+    if g["prior"]:
+        argv += ["--prior_file", g["prior"]]
+    main._native_scan_cache.clear()
+    align_cuda.reset_launches()
+    reset_counts()
+    reset_b6_counts()
+    if DEVICE.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    seen: dict = {}
+    rss: dict = {}
+    t0 = time.perf_counter()
+    with auto_spans(seen), sampled_peak_rss(rss), \
+            redirect_stdout(io.StringIO()):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"auto mode ({g['dtype']} {mode}) returned {rc}")
+    launches = {"B1": align_cuda.launches,
+                "B4": align_cuda.traceback_launches,
+                "B2": region_cuda.launches, "B3": region_cuda.rows_launches,
+                "B6": pairhmm_cuda.launches}
+    native = main._native_scan_cache.get(g["bam"])
+    run = dict(out=out, mode=mode, wall_s=wall, launches=launches, chunks=seen[
+        "chunks"], tiles=seen["tiles"], spans=seen["spans"],
+        native_scan=native is not None,
+        step0_s=seen["target_start"] - t0,
+        target_s=t0 + wall - seen["target_start"],
+        peak_rss_mb=rss["peak_rss_mb"], start_rss_mb=rss["start_rss_mb"],
+        ru_maxrss_mb=(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                      / 1024),
+        max_allocated_mb=(torch.cuda.max_memory_allocated() / 2 ** 20
+                          if DEVICE.type == "cuda" else 0.0))
+    main._native_scan_cache.clear()
+    bed = f"SV_Regions_{g['dtype']}.bed"
+    with open(os.path.join(out, bed)) as f:
+        run["regions"] = [(c, int(a), int(b)) for c, a, b in
+                          (ln.split("\t") for ln in f.read().splitlines())]
+    run["files"] = {}
+    for name in [bed, "FocalSV_Final_SV.vcf"] + [
+            os.path.join(c, "FocalSV_Final_SV.vcf") for c in g["chrom_lens"]]:
+        with open(os.path.join(out, name), "rb") as f:
+            run["files"][name] = f.read()
+    run["chroms"] = {}
+    for c in g["chrom_lens"]:
+        log_dir = os.path.join(out, c, "log")
+        with open(os.path.join(log_dir, "stage_times.json")) as f:
+            stages = {k: v["seconds"] for k, v in json.load(f).items()}
+        stats = {}
+        if mode == "device":
+            with open(os.path.join(log_dir, "device_stats.json")) as f:
+                stats = json.load(f)
+        run["chroms"][c] = dict(stages=stages, stats=stats)
+    return run
+
+
+def auto_report(g: dict, run: dict) -> None:
+    """Print one auto run: step 0 by part, target mode by chromosome, the
+    buckets and tiles, memory, launches and accuracy against the truth."""
+    from focalsv_tpu_torch.evaluation.compare import match_records
+    from focalsv_tpu_torch.io.vcf import read_vcf
+    tag = f"[auto] {g['dtype']} {run['mode']}"
+    n = len(run["regions"])
+    widths = sorted(b - a for _, a, b in run["regions"])
+    sp = run["spans"]
+    log(f"{tag}: step 0 {run['step0_s']:.3f} s (native scan "
+        f"{sp.get('native_scan', 0.0):.3f}, paid by this run: "
+        f"{run['native_scan']}; coverage {sp.get('coverage', 0.0):.3f}; "
+        f"detect {sp.get('detect', 0.0):.3f}; BED {sp.get('bed', 0.0):.4f}), "
+        f"target mode {run['target_s']:.3f} s, wall {run['wall_s']:.3f} s; "
+        f"{n} regions, widths {widths[0]}-{widths[len(widths) // 2]}-"
+        f"{widths[-1]} bp (least, median, most): {n / run['wall_s']:.3f} "
+        f"regions/s over the run, {n / run['target_s']:.3f} over target mode")
+    for c, r in run["chroms"].items():
+        st = r["stats"]
+        dev = (f"; n_chunks={st['n_chunks']} "
+               f"n_host_fallback={st['n_host_fallback']} "
+               f"h2d_bytes={int(st['h2d_bytes'])} "
+               f"d2h_bytes={int(st['d2h_bytes'])} "
+               f"device_busy_s={st['device_busy_s']:.3f} "
+               f"tile_build_s={st['tile_build_s']:.3f} "
+               f"finish_s={st['finish_s']:.3f} "
+               f"dp_jobs={st.get('dp_jobs', 0)}" if st else "")
+        log(f"{tag} {c}: {sum(1 for rc, _, _ in run['regions'] if rc == c)} "
+            f"regions, stage seconds {json.dumps(r['stages'])}{dev}")
+    if run["mode"] == "device":
+        buckets: dict = {}
+        for key, G, real, cfg in run["chunks"]:
+            b = buckets.setdefault((key[0], key[2]), dict(chunks=0, regions=0,
+                                                          G=G, key=key,
+                                                          cfg=cfg))
+            b["chunks"] += 1
+            b["regions"] += real
+        for (kind, L), b in sorted(buckets.items()):
+            kw = (delta_kwargs(b["key"], b["G"], b["cfg"]) if kind == "delta"
+                  else rows_kwargs(b["key"], b["G"], b["cfg"]))
+            log(f"{tag} bucket {kind} L {L}: {b['chunks']} chunks, "
+                f"{b['regions']} regions, G {b['G']}, launch plan "
+                f"{json.dumps(launch_plan(kw))}")
+        log(f"{tag} tiles by encoding: {json.dumps(run['tiles'])}")
+    log(f"{tag}: host RSS {run['start_rss_mb']:.0f} MB at the run's start, "
+        f"{run['peak_rss_mb']:.0f} MB at most during it (sampled every 0.05 "
+        f"s); ru_maxrss of the process, earlier phases included, "
+        f"{run['ru_maxrss_mb']:.0f} MB; torch.cuda.max_memory_allocated "
+        f"{run['max_allocated_mb']:.1f} MiB; launches "
+        f"{json.dumps(run['launches'])}")
+    _, calls = read_vcf(os.path.join(run["out"], "FocalSV_Final_SV.vcf"))
+    b = match_records(calls, g["truth"])
+    log(f"{tag}: {len(calls)} calls against {len(g['truth'])} true SVs: "
+        f"recall {b.recall:.4f} precision {b.precision:.4f} F1 {b.f1:.4f} "
+        f"(reported, not gated)")
+
+
+def auto_mode(work: str, smi: str) -> dict:
+    """Phase 12: auto mode on the card and on the host, HiFi with a prior
+    and CLR without; returns the kernels' launches of each device run."""
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.testing import auto_cases
+    t_phase = time.perf_counter()
+    log(f"[auto] card: {smi}")
+    hifi = auto_genome(work, "HIFI", AUTO_N_CHROMS, AUTO_CHROM_LEN, True)
+    clr = auto_genome(work, "CLR", 1, AUTO_CLR_CHROM_LEN, False)
+    checks = {}
+    launches = {}
+    for g, path in ((hifi, "auto_mode"), (clr, "auto_mode_clr")):
+        runs = {}
+        for mode in ("device", "host"):
+            out = os.path.join(work, f"auto_{g['dtype'].lower()}_{mode}")
+            runs[mode] = auto_run(g, out, mode)
+            auto_report(g, runs[mode])
+        dev, host = runs["device"], runs["host"]
+        launches[path] = dev["launches"]
+        tag = g["dtype"]
+        for name in dev["files"]:
+            checks[f"{tag} device {name} == host"] = (
+                dev["files"][name] == host["files"][name])
+        checks[f"{tag} native scan ran (device, host)"] = (
+            dev["native_scan"] and host["native_scan"])
+        checks[f"{tag} regions > 0"] = len(dev["regions"]) > 0
+        checks[f"{tag} device chunks > 0"] = all(
+            r["stats"]["n_chunks"] > 0 for r in dev["chroms"].values())
+        checks[f"B2 launched on {path}"] = dev["launches"]["B2"] > 0
+    parity = auto_cases.scan_parity_check(hifi["bam"], preset("HIFI"))
+    log(f"[auto] native scan against the Python scan over "
+        f"{len(hifi['chrom_lens'])} chromosomes: {parity['checked']} "
+        f"signatures, differing (chromosome, kind) sets {parity['differ']}; "
+        f"native {parity['native_s']:.3f} s, Python "
+        f"{parity['python_s']:.3f} s")
+    checks["native scan == Python scan"] = (not parity["differ"]
+                                            and parity["checked"] > 0)
+    for name, ok in checks.items():
+        log(f"[auto] check {name}: {ok}")
+    log(f"[auto] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"auto mode checks failed: {failed}")
+    return launches
+
+
 def child_pids() -> list[int]:
     """The processes whose parent is this one, zombies left out."""
     me, out = os.getpid(), []
@@ -2190,7 +2507,7 @@ def stop_helpers() -> list[int]:
 
 
 def main() -> int:
-    device_check()
+    smi = device_check()
     if not os.path.isdir(os.path.join(ROOT, "focalsv_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
@@ -2226,6 +2543,7 @@ def main() -> int:
         b6 += path_rows
         evaluation_phase(regions, work, main_path["guided_vcf"])
         mesh = multi_device(rng, jobs, main_path, work)
+        auto = auto_mode(work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     left = stop_helpers()
@@ -2246,7 +2564,9 @@ def main() -> int:
         # counts the direction bytes and walks none: its count there reads 0)
         by_path = {"target_mode_guided_and_olc": n,
                    "complex_sv_target": n_complex,
-                   **{path: counts[k] for path, counts in mesh.items()}}
+                   **{path: counts[k] for path, counts in mesh.items()},
+                   **{path: counts[("B1", "B4")[k]]
+                      for path, counts in auto.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2258,7 +2578,12 @@ def main() -> int:
             # no single PyTorch call computes a banded affine-gap DP or
             # walks its direction bytes
             "library_ms": None})
-    for path in ("golden_cli", "target_mode_guided", "sharded_region_step"):
+    for path, counts in auto.items():
+        B2_LAUNCHES[path] = counts["B2"]
+        B3_LAUNCHES[path] = counts["B3"]
+        B6_LAUNCHES[path] = counts["B6"]
+    for path in ("golden_cli", "target_mode_guided", "sharded_region_step",
+                 "auto_mode"):
         if B2_LAUNCHES.get(path, 0) == 0:
             raise AssertionError(f"B2 was not launched on the path {path}")
     hifi = min(b2, key=lambda r: r["L"])    # the HiFi chunk at L 16384

@@ -2,7 +2,8 @@
 
 tests/conftest.py imports jax for the whole session, so the check runs in a
 subprocess with jax and focalsv_tpu blocked: it imports focalsv_tpu_torch,
-runs the golden HIFI fixture in device mode, an OLC region with every DP
+runs the golden HIFI fixture in device mode, auto mode with a prior on two
+chromosomes of noisy reads, an OLC region with every DP
 job on the device batch, and every other entry point of the port once (the
 multi-process executor, a host region with pair-HMM realignment, the
 complex-SV, evaluation, somatic, clean-up and call-set CLIs, the dry run on
@@ -65,6 +66,22 @@ GUARD = BLOCK + textwrap.dedent('''
         got = f.read()
     with open(f"{golden}/expected.vcf") as f:
         assert got == f.read(), "golden HIFI VCF differs"
+
+    # auto mode on two chromosomes with a prior: the native step-0 scan,
+    # the coverage estimate of noisy reads, detection, then target mode
+    from focalsv_tpu_torch.testing import auto_cases
+    os.makedirs(f"{out}/wgs")
+    wgs = auto_cases.mini_wgs(f"{out}/wgs", "CLR")
+    rc = cli.main(["--bam_file", wgs["bam"], "--ref_file", wgs["ref"],
+                   "--out_dir", f"{out}/auto", "--data_type", "CLR",
+                   "--auto", "--prior_file", wgs["prior"],
+                   "--num_threads", "2", "--execution", "device"])
+    assert rc == 0
+    assert main._native_scan_cache.get(wgs["bam"]) is not None
+    for c in ("chr1", "chr2"):
+        assert os.path.exists(f"{out}/auto/{c}/FocalSV_Final_SV.vcf")
+    with open(f"{out}/auto/SV_Regions_CLR.bed") as f:
+        assert {ln.split()[0] for ln in f} == {"chr1", "chr2"}
 
     rg = sim.simulate_region(seed=62, ref_len=8000, coverage=6, n_snps=8,
                              sub_rate=0.002, read_len_mean=3000,
@@ -258,14 +275,15 @@ def test_no_jax_import_in_port_sources():
 
 
 IMPORT_OF_REFERENCE = re.compile(
-    r"^\s*(from|import)\s+(jax|focalsv_tpu)(\.|\s|$)", re.M)
+    r"^\s*(from|import)\s+(jax|focalsv_tpu|bench_auto)(\.|\s|$)", re.M)
 
 
 def test_guard_pattern_sees_an_import_put_back():
     for line in ("from focalsv_tpu.config import preset",
                  "    import focalsv_tpu.io.bam as bamio",
                  "from focalsv_tpu import native", "import jax",
-                 "import focalsv_tpu"):
+                 "import focalsv_tpu", "from bench_auto import build_genome",
+                 "    import bench_auto"):
         assert IMPORT_OF_REFERENCE.search(line), line
     for line in ("from focalsv_tpu_torch.config import preset",
                  "import focalsv_tpu_torch", "# from focalsv_tpu import x"):
@@ -273,8 +291,9 @@ def test_guard_pattern_sees_an_import_put_back():
 
 
 def test_no_import_of_the_jax_package_in_port_sources():
-    """Neither the port's package, nor chip_smoke.py, nor the card tests
-    (which run where there is no jax) import jax or focalsv_tpu."""
+    """Neither the port's package (its auto-mode genome builder included),
+    nor chip_smoke.py, nor the card tests (which run where there is no jax)
+    import jax, focalsv_tpu or bench_auto.py, which imports the latter."""
     files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "tests" / "test_torch_cuda.py"]
     offenders = []
