@@ -111,11 +111,14 @@ on the card in phases, and exits non-zero at the first phase that fails:
    chromosome's VCF of the device run must equal the host run's byte for
    byte, the scan must have been the native one, B2 must have launched, and
    the native scan's signatures must equal the Python scan's on every
-   chromosome; step 0 by part, target mode by chromosome (stage seconds,
-   chunks, host fallbacks, bytes, busy seconds), the buckets hit with B2's
-   or B3's launch plan, the tiles by encoding, peak host RSS, the card's
-   peak allocation and recall, precision and F1 against the truth are
-   printed, not gated.
+   chromosome; the device runs' regions are tiled again, and a chunk of
+   each bucket those runs dispatched goes through B2 (B3 for a dense one)
+   and its plain version on the card and on the CPU, byte for byte.  Step
+   0 by part (out/log/stage_times.json), target mode by chromosome (stage
+   seconds, chunks, host fallbacks, bytes, the dispatch window), the
+   buckets hit with B2's or B3's launch plan, the tiles by encoding, peak
+   host RSS, the card's peak allocation and recall, precision and F1
+   against the truth are printed, not gated.
 
 Phase 4 also prints the region step's card time by kernel name for one
 delta and one rows chunk (torch.profiler); each must take at most 5
@@ -2222,71 +2225,15 @@ def sampled_peak_rss(out: dict, every_s: float = 0.05):
         thread.join()
 
 
-@contextlib.contextmanager
-def auto_spans(seen: dict):
-    """Time step 0's parts and record each device chunk and tile of one
-    auto run, by wrapping the functions that run_auto_mode and
-    streamed_map call (restored on the way out)."""
-    from focalsv_tpu_torch.pipeline import device_exec as dx
-    from focalsv_tpu_torch.pipeline import main
-    from focalsv_tpu_torch.scan import fast_scan
-    from focalsv_tpu_torch.utils import coverage
-    seen.update(spans={}, chunks=[], tiles={}, target_start=None)
-
-    def timed(mod, name, span):
-        real = getattr(mod, name)
-
-        def wrapper(*args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return real(*args, **kw)
-            finally:
-                seen["spans"][span] = (seen["spans"].get(span, 0.0)
-                                       + time.perf_counter() - t0)
-        return mod, name, wrapper
-
-    real_target = main.run_target_mode
-
-    def target(*args, **kw):
-        seen["target_start"] = time.perf_counter()
-        return real_target(*args, **kw)
-
-    real_dispatch = dx._dispatch_one
-
-    def dispatch(tiles, chunk, key, G, cfg, device, mesh=None):
-        seen["chunks"].append((key, G, len(chunk), cfg))
-        return real_dispatch(tiles, chunk, key, G, cfg, device, mesh)
-
-    real_key = dx._bucket_key
-
-    def bucket_key(tile, cfg):
-        key = real_key(tile, cfg)
-        kind = "host" if key is None else key[0]
-        seen["tiles"][kind] = seen["tiles"].get(kind, 0) + 1
-        return key
-
-    patches = [timed(fast_scan, "scan_bam_native", "native_scan"),
-               timed(coverage, "estimate_bam_cov", "coverage"),
-               timed(main, "detect_regions", "detect"),
-               timed(main, "write_bed", "bed"),
-               (main, "run_target_mode", target),
-               (dx, "_dispatch_one", dispatch),
-               (dx, "_bucket_key", bucket_key)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
-    try:
-        for mod, name, fn in patches:
-            setattr(mod, name, fn)
-        yield seen
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+STEP0_STAGES = ("load", "coverage", "scan", "prior", "detect", "bed")
 
 
 def auto_run(g: dict, out: str, mode: str) -> dict:
     """One run of the port's CLI with --auto over genome g, with the
     kernels' counts set to 0 just before it and read just after.  The
     native scan's cache is cleared first, so that each run pays for its own
-    scan."""
+    scan.  Step 0's parts come from out/log/stage_times.json, each
+    chromosome's from out/<chrom>/log/."""
     import io
     import resource
     from contextlib import redirect_stdout
@@ -2304,11 +2251,9 @@ def auto_run(g: dict, out: str, mode: str) -> dict:
     reset_b6_counts()
     if DEVICE.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    seen: dict = {}
     rss: dict = {}
     t0 = time.perf_counter()
-    with auto_spans(seen), sampled_peak_rss(rss), \
-            redirect_stdout(io.StringIO()):
+    with sampled_peak_rss(rss), redirect_stdout(io.StringIO()):
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
     if rc != 0:
@@ -2318,17 +2263,19 @@ def auto_run(g: dict, out: str, mode: str) -> dict:
                 "B2": region_cuda.launches, "B3": region_cuda.rows_launches,
                 "B6": pairhmm_cuda.launches}
     native = main._native_scan_cache.get(g["bam"])
-    run = dict(out=out, mode=mode, wall_s=wall, launches=launches, chunks=seen[
-        "chunks"], tiles=seen["tiles"], spans=seen["spans"],
-        native_scan=native is not None,
-        step0_s=seen["target_start"] - t0,
-        target_s=t0 + wall - seen["target_start"],
-        peak_rss_mb=rss["peak_rss_mb"], start_rss_mb=rss["start_rss_mb"],
-        ru_maxrss_mb=(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-                      / 1024),
-        max_allocated_mb=(torch.cuda.max_memory_allocated() / 2 ** 20
-                          if DEVICE.type == "cuda" else 0.0))
     main._native_scan_cache.clear()
+    with open(os.path.join(out, "log", "stage_times.json")) as f:
+        spans = {k: v["seconds"] for k, v in json.load(f).items()}
+    step0 = sum(spans.get(k, 0.0) for k in STEP0_STAGES)
+    run = dict(out=out, mode=mode, wall_s=wall, launches=launches,
+               spans=spans, native_scan=native is not None, step0_s=step0,
+               target_s=wall - step0,
+               peak_rss_mb=rss["peak_rss_mb"],
+               start_rss_mb=rss["start_rss_mb"],
+               ru_maxrss_mb=(resource.getrusage(resource.RUSAGE_SELF)
+                             .ru_maxrss / 1024),
+               max_allocated_mb=(torch.cuda.max_memory_allocated() / 2 ** 20
+                                 if DEVICE.type == "cuda" else 0.0))
     bed = f"SV_Regions_{g['dtype']}.bed"
     with open(os.path.join(out, bed)) as f:
         run["regions"] = [(c, int(a), int(b)) for c, a, b in
@@ -2339,6 +2286,7 @@ def auto_run(g: dict, out: str, mode: str) -> dict:
         with open(os.path.join(out, name), "rb") as f:
             run["files"][name] = f.read()
     run["chroms"] = {}
+    run["buckets"], run["tiles"] = {}, {}
     for c in g["chrom_lens"]:
         log_dir = os.path.join(out, c, "log")
         with open(os.path.join(log_dir, "stage_times.json")) as f:
@@ -2347,6 +2295,16 @@ def auto_run(g: dict, out: str, mode: str) -> dict:
         if mode == "device":
             with open(os.path.join(log_dir, "device_stats.json")) as f:
                 stats = json.load(f)
+            for name, b in stats["buckets"].items():
+                m = run["buckets"].setdefault(name, dict(
+                    key=tuple(b["key"]), G=b["G"], chunks=0, regions=0))
+                if m["G"] != b["G"]:
+                    raise AssertionError(f"bucket {name}: G {m['G']} and "
+                                         f"{b['G']} in one run")
+                m["chunks"] += b["chunks"]
+                m["regions"] += b["regions"]
+            for kind, n in stats["tiles_by_encoding"].items():
+                run["tiles"][kind] = run["tiles"].get(kind, 0) + n
         run["chroms"][c] = dict(stages=stages, stats=stats)
     return run
 
@@ -2354,46 +2312,42 @@ def auto_run(g: dict, out: str, mode: str) -> dict:
 def auto_report(g: dict, run: dict) -> None:
     """Print one auto run: step 0 by part, target mode by chromosome, the
     buckets and tiles, memory, launches and accuracy against the truth."""
+    from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.evaluation.compare import match_records
     from focalsv_tpu_torch.io.vcf import read_vcf
     tag = f"[auto] {g['dtype']} {run['mode']}"
     n = len(run["regions"])
     widths = sorted(b - a for _, a, b in run["regions"])
     sp = run["spans"]
-    log(f"{tag}: step 0 {run['step0_s']:.3f} s (native scan "
-        f"{sp.get('native_scan', 0.0):.3f}, paid by this run: "
-        f"{run['native_scan']}; coverage {sp.get('coverage', 0.0):.3f}; "
-        f"detect {sp.get('detect', 0.0):.3f}; BED {sp.get('bed', 0.0):.4f}), "
-        f"target mode {run['target_s']:.3f} s, wall {run['wall_s']:.3f} s; "
-        f"{n} regions, widths {widths[0]}-{widths[len(widths) // 2]}-"
-        f"{widths[-1]} bp (least, median, most): {n / run['wall_s']:.3f} "
-        f"regions/s over the run, {n / run['target_s']:.3f} over target mode")
+    log(f"{tag}: step 0 {run['step0_s']:.3f} s ("
+        + "; ".join(f"{k} {sp[k]:.4f}" for k in STEP0_STAGES if k in sp)
+        + f"; the native scan paid by this run: {run['native_scan']}), "
+        f"the rest of the run (target mode) {run['target_s']:.3f} s, wall "
+        f"{run['wall_s']:.3f} s; {n} regions, widths {widths[0]}-"
+        f"{widths[len(widths) // 2]}-{widths[-1]} bp (least, median, most): "
+        f"{n / run['wall_s']:.3f} regions/s over the run, "
+        f"{n / run['target_s']:.3f} over target mode")
     for c, r in run["chroms"].items():
         st = r["stats"]
         dev = (f"; n_chunks={st['n_chunks']} "
                f"n_host_fallback={st['n_host_fallback']} "
                f"h2d_bytes={int(st['h2d_bytes'])} "
                f"d2h_bytes={int(st['d2h_bytes'])} "
-               f"device_busy_s={st['device_busy_s']:.3f} "
+               f"device_busy_s={st['device_busy_s']:.3f} (the dispatch "
+               f"window, host clock) "
                f"tile_build_s={st['tile_build_s']:.3f} "
                f"finish_s={st['finish_s']:.3f} "
                f"dp_jobs={st.get('dp_jobs', 0)}" if st else "")
         log(f"{tag} {c}: {sum(1 for rc, _, _ in run['regions'] if rc == c)} "
             f"regions, stage seconds {json.dumps(r['stages'])}{dev}")
     if run["mode"] == "device":
-        buckets: dict = {}
-        for key, G, real, cfg in run["chunks"]:
-            b = buckets.setdefault((key[0], key[2]), dict(chunks=0, regions=0,
-                                                          G=G, key=key,
-                                                          cfg=cfg))
-            b["chunks"] += 1
-            b["regions"] += real
-        for (kind, L), b in sorted(buckets.items()):
-            kw = (delta_kwargs(b["key"], b["G"], b["cfg"]) if kind == "delta"
-                  else rows_kwargs(b["key"], b["G"], b["cfg"]))
-            log(f"{tag} bucket {kind} L {L}: {b['chunks']} chunks, "
+        cfg = preset(g["dtype"])
+        for b in sorted(run["buckets"].values(),
+                        key=lambda b: (b["key"][0], b["key"][2], b["key"])):
+            plan = launch_plan(chunk_kwargs(b["key"], b["G"], cfg))
+            log(f"{tag} bucket {b['key']}: {b['chunks']} chunks, "
                 f"{b['regions']} regions, G {b['G']}, launch plan "
-                f"{json.dumps(launch_plan(kw))}")
+                f"{json.dumps(plan)}")
         log(f"{tag} tiles by encoding: {json.dumps(run['tiles'])}")
     log(f"{tag}: host RSS {run['start_rss_mb']:.0f} MB at the run's start, "
         f"{run['peak_rss_mb']:.0f} MB at most during it (sampled every 0.05 "
@@ -2408,9 +2362,63 @@ def auto_report(g: dict, run: dict) -> None:
         f"(reported, not gated)")
 
 
+def chunk_kwargs(key, G, cfg) -> dict:
+    """The region step's arguments for a chunk of bucket key."""
+    return (delta_kwargs(key, G, cfg) if key[0] == "delta"
+            else rows_kwargs(key, G, cfg))
+
+
+def auto_chunks(g: dict, run: dict) -> list[tuple]:
+    """One packed chunk for each bucket that a device run dispatched, as
+    its device_stats.json files name them: the run's regions tiled again as
+    target mode tiles them (which must give the run's buckets, region for
+    region), then the first G tiles of each bucket, padded as the run pads
+    a tail.  Returns (case, buffer, kwargs) for against_plain."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.io import bam as bamio
+    from focalsv_tpu_torch.io.fasta import FastaFile
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    cfg = preset(g["dtype"])
+    bam = bamio.ensure_indexed(g["bam"])
+    fasta = FastaFile.load(g["fasta"])
+
+    def tile(region):
+        c, a, b = region
+        return dx.build_tile(list(bam.fetch(c, a, b)), fasta.fetch(c, a, b),
+                             a, c, cfg)
+
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        tiles = list(ex.map(tile, run["regions"]))
+    by_key: dict = {}
+    for i, t in enumerate(tiles):
+        by_key.setdefault(dx._bucket_key(t, cfg), []).append(i)
+    got = {k: len(v) for k, v in by_key.items() if k is not None}
+    want = {b["key"]: b["regions"] for b in run["buckets"].values()}
+    if got != want or len(by_key.get(None, [])) != run["tiles"].get(
+            "host", 0):
+        raise AssertionError(f"{g['dtype']}: the regions tiled again give "
+                             f"buckets {got}, the run dispatched {want}")
+    out = []
+    for b in sorted(run["buckets"].values(),
+                    key=lambda b: (b["key"][0], b["key"][2], b["key"])):
+        key, G = b["key"], b["G"]
+        idxs = by_key[key][:G]
+        chunk = idxs + [len(tiles)] * (G - len(idxs))
+        out.append((f"auto {g['dtype']} {key} real={len(idxs)}",
+                    dx.pack_chunk(tiles + [None], chunk, key, G),
+                    chunk_kwargs(key, G, cfg)))
+    log(f"[auto] {g['dtype']}: the run's regions tiled again give its "
+        f"{len(want)} buckets, each held to the plain version")
+    return out
+
+
 def auto_mode(work: str, smi: str) -> dict:
     """Phase 12: auto mode on the card and on the host, HiFi with a prior
-    and CLR without; returns the kernels' launches of each device run."""
+    and CLR without; B2 (B3 for a dense tile) against its plain version at
+    each bucket the device runs dispatched.  Returns the
+    kernels' launches of each device run and the kernel rows."""
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.testing import auto_cases
     t_phase = time.perf_counter()
@@ -2419,6 +2427,7 @@ def auto_mode(work: str, smi: str) -> dict:
     clr = auto_genome(work, "CLR", 1, AUTO_CLR_CHROM_LEN, False)
     checks = {}
     launches = {}
+    b2, b3 = [], []
     for g, path in ((hifi, "auto_mode"), (clr, "auto_mode_clr")):
         runs = {}
         for mode in ("device", "host"):
@@ -2437,6 +2446,9 @@ def auto_mode(work: str, smi: str) -> dict:
         checks[f"{tag} device chunks > 0"] = all(
             r["stats"]["n_chunks"] > 0 for r in dev["chroms"].values())
         checks[f"B2 launched on {path}"] = dev["launches"]["B2"] > 0
+        for case, buf, kw in auto_chunks(g, dev):
+            # raises where the kernel differs from its plain version
+            (b3 if "W" in kw else b2).append(against_plain(case, buf, kw))
     parity = auto_cases.scan_parity_check(hifi["bam"], preset("HIFI"))
     log(f"[auto] native scan against the Python scan over "
         f"{len(hifi['chrom_lens'])} chromosomes: {parity['checked']} "
@@ -2451,7 +2463,7 @@ def auto_mode(work: str, smi: str) -> dict:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"auto mode checks failed: {failed}")
-    return launches
+    return dict(launches=launches, b2=b2, b3=b3)
 
 
 def child_pids() -> list[int]:
@@ -2566,7 +2578,7 @@ def main() -> int:
                    "complex_sv_target": n_complex,
                    **{path: counts[k] for path, counts in mesh.items()},
                    **{path: counts[("B1", "B4")[k]]
-                      for path, counts in auto.items()}}
+                      for path, counts in auto["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2578,7 +2590,7 @@ def main() -> int:
             # no single PyTorch call computes a banded affine-gap DP or
             # walks its direction bytes
             "library_ms": None})
-    for path, counts in auto.items():
+    for path, counts in auto["launches"].items():
         B2_LAUNCHES[path] = counts["B2"]
         B3_LAUNCHES[path] = counts["B3"]
         B6_LAUNCHES[path] = counts["B6"]
@@ -2593,16 +2605,19 @@ def main() -> int:
         "replaces": "focalsv_tpu/parallel/region_step.py:657",
         "launches": sum(B2_LAUNCHES.values()),
         "launches_by_path": dict(B2_LAUNCHES),
-        "max_abs_err": max(r["max_abs_err"] for r in b2 + b2_cases),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in b2 + b2_cases + auto["b2"]),
         "ms": hifi["ms"], "plain_ms": hifi["plain_ms"],
         "bound_ms": hifi["bound_ms"], "bound_by": hifi["bound_by"],
         # no single PyTorch call computes the region step
         "library_ms": None,
         "cluster": hifi.get("cluster"), "smem_bytes": hifi.get("smem_bytes"),
         "queued_ms": hifi["queued_ms"],
-        "ms_by_chunk": {f"L{r['L']}": r["ms"] for r in b2},
-        "queued_ms_by_chunk": {f"L{r['L']}": r["queued_ms"] for r in b2},
-        "bound_ms_by_chunk": {f"L{r['L']}": r["bound_ms"] for r in b2}})
+        # phase 4's chunks by L, then phase 12's by case
+        **{f"{k}_by_chunk": {
+            **{f"L{r['L']}": r[k] for r in b2},
+            **{r["case"]: r[k] for r in auto["b2"]}}
+            for k in ("ms", "queued_ms", "plain_ms", "bound_ms")}})
     for path in ("region_step_chunks", "noisy_target_mode",
                  "sharded_region_step", "dry_run"):
         if B3_LAUNCHES.get(path, 0) == 0:
@@ -2617,20 +2632,16 @@ def main() -> int:
         "launches": sum(B3_LAUNCHES.values()),
         "launches_by_path": dict(B3_LAUNCHES),
         "max_abs_err": max(r["max_abs_err"]
-                           for r in b3 + b3_cases + b3_noisy),
+                           for r in b3 + b3_cases + b3_noisy + auto["b3"]),
         "ms": noisy["ms"], "plain_ms": noisy["plain_ms"],
         "bound_ms": noisy["bound_ms"], "bound_by": noisy["bound_by"],
         # no single PyTorch call computes the region step
         "library_ms": None,
         "cluster": noisy.get("cluster"), "smem_bytes": noisy.get("smem_bytes"),
         "queued_ms": noisy["queued_ms"],
-        "ms_by_chunk": {r["case"]: r["ms"] for r in b3 + b3_noisy},
-        "queued_ms_by_chunk": {r["case"]: r["queued_ms"]
-                               for r in b3 + b3_noisy},
-        "plain_ms_by_chunk": {r["case"]: r["plain_ms"]
-                              for r in b3 + b3_noisy},
-        "bound_ms_by_chunk": {r["case"]: r["bound_ms"]
-                              for r in b3 + b3_noisy}})
+        **{f"{k}_by_chunk": {r["case"]: r[k]
+                             for r in b3 + b3_noisy + auto["b3"]}
+           for k in ("ms", "queued_ms", "plain_ms", "bound_ms")}})
     for path in ("pairhmm_target_mode_hifi", "pairhmm_target_mode_noisy"):
         if B6_LAUNCHES.get(path, 0) == 0:
             raise AssertionError(f"B6 was not launched on the path {path}")

@@ -394,7 +394,11 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
     thread-seconds per stage (tile_build_s, device_wait_s, finish_s),
     device dispatch span (device_busy_s: first dispatch -> last result
     materialized, i.e. the window the chip has work in flight), chunk count,
-    and h2d/d2h transfer bytes.
+    and h2d/d2h transfer bytes; ``tiles_by_encoding`` counts the tiles of
+    each kind ("delta", "dense", "host" for a tile past the bucket bounds)
+    and ``buckets`` each bucket's chunks and regions, by
+    "kind-R-L-..." name: {"key": the bucket key, "G", "chunks",
+    "regions"}.
     """
     import concurrent.futures as cf
     import time as _time
@@ -406,6 +410,8 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
         st.setdefault(k, 0.0)
     st.setdefault("n_chunks", 0)
     st.setdefault("n_host_fallback", 0)
+    st.setdefault("tiles_by_encoding", {})
+    st.setdefault("buckets", {})
     n = len(tile_jobs)
     tiles: list[RegionTile | None] = [None] * n
 
@@ -440,6 +446,10 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
             res = _dispatch_one(tiles, chunk, key, G, cfg, device, mesh)
             st["n_chunks"] += 1
             st["h2d_bytes"] += _h2d_bytes(key, G)
+            b = st["buckets"].setdefault("-".join(map(str, key)), dict(
+                key=list(key), G=G, chunks=0, regions=0))
+            b["chunks"] += 1
+            b["regions"] += len(chunk)
             pending.append((chunk, key, res))
         buckets[key] = idxs
 
@@ -470,6 +480,9 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
         if tile is None:
             continue
         key = _bucket_key(tile, cfg)
+        kind = "host" if key is None else key[0]
+        st["tiles_by_encoding"][kind] = (
+            st["tiles_by_encoding"].get(kind, 0) + 1)
         if key is None:
             # host-fallback tile: start its finish immediately
             st["n_host_fallback"] += 1

@@ -460,17 +460,25 @@ def run_auto_mode(
     num_workers: int = 4,
 ) -> str:
     """Auto-mode entry: step-0 region detection, then target mode
-    (reference 0_define_region.py :520-543 + focalsv.py chr loop)."""
+    (reference 0_define_region.py :520-543 + focalsv.py chr loop).
+
+    Step 0's parts (load, coverage, scan, prior, detect, bed) are timed
+    into out_dir/log/stage_times.json; each chromosome's target mode
+    writes its own under out_dir/<chrom>/log/."""
+    from focalsv_tpu_torch.utils.profiling import StageTimer
+    timer = StageTimer()
     os.makedirs(out_dir, exist_ok=True)
-    bam = bamio.ensure_indexed(bam_path)
-    fasta = FastaFile.load(ref_path)
+    with timer.stage("load"):
+        bam = bamio.ensure_indexed(bam_path)
+        fasta = FastaFile.load(ref_path)
     if chroms is None:
         chroms = [c for c in bam.ref_names if c in fasta.seqs]
     if cfg.data_type != DataType.HIFI:
         # CLR/ONT: min_sig scales with estimated coverage
         # (0_define_region.py:480-502, min_sig = 0.17 x mean_cov)
         from focalsv_tpu_torch.utils.coverage import estimate_bam_cov
-        mean_cov = estimate_bam_cov(bam, chroms)
+        with timer.stage("coverage"):
+            mean_cov = estimate_bam_cov(bam, chroms)
         min_sig = max(1, int(cfg.detect.min_sig_cov_fraction * mean_cov))
         import dataclasses as _dc
         cfg = cfg.replace(detect=_dc.replace(cfg.detect, min_sig=min_sig))
@@ -479,10 +487,11 @@ def run_auto_mode(
     sig_del: dict[str, tuple[np.ndarray, np.ndarray]] = {}
     sig_ins: dict[str, tuple[np.ndarray, np.ndarray]] = {}
     for c in chroms:
-        scan = _native_chrom_scan(bam, c, cfg)
-        if scan is None:
-            _, scan = scan_chromosome(bam.fetch(c), c, cfg.read_scan,
-                                      genotype=False)
+        with timer.stage("scan"):
+            scan = _native_chrom_scan(bam, c, cfg)
+            if scan is None:
+                _, scan = scan_chromosome(bam.fetch(c), c, cfg.read_scan,
+                                          genotype=False)
         sig_del[c] = (np.array([s.pos for s in scan.del_sigs], np.int64),
                       np.array([s.length for s in scan.del_sigs], np.int64))
         sig_ins[c] = (np.array([s.pos for s in scan.ins_sigs], np.int64),
@@ -490,7 +499,8 @@ def run_auto_mode(
     prior: dict[str, np.ndarray] = {c: np.zeros(0, np.int64) for c in chroms}
     if prior_vcf:
         from focalsv_tpu_torch.io.vcf import read_vcf
-        _, prior_records = read_vcf(prior_vcf)
+        with timer.stage("prior"):
+            _, prior_records = read_vcf(prior_vcf)
         for r in prior_records:
             prior.setdefault(r.chrom, np.zeros(0, np.int64))
         by_c: dict[str, list[int]] = {}
@@ -498,16 +508,21 @@ def run_auto_mode(
             by_c.setdefault(r.chrom, []).append(r.pos)
         for c, poss in by_c.items():
             prior[c] = np.array(poss, np.int64)
-    regions = detect_regions(sig_del, sig_ins, prior, cfg.detect,
-                             chroms=chroms)
+    with timer.stage("detect"):
+        regions = detect_regions(sig_del, sig_ins, prior, cfg.detect,
+                                 chroms=chroms)
     # clamp to chromosome bounds
     lens = fasta.lengths()
     regions = [Region(r.chrom, max(0, r.start), min(lens[r.chrom], r.end))
                for r in regions if r.chrom in lens]
     bed_path = os.path.join(
         out_dir, f"SV_Regions_{cfg.data_type.value}.bed")
-    write_bed(bed_path, regions)
+    with timer.stage("bed"):
+        write_bed(bed_path, regions)
     logger.info("auto mode: %d SV-rich regions -> %s", len(regions), bed_path)
+    log_dir = os.path.join(out_dir, "log")
+    os.makedirs(log_dir, exist_ok=True)
+    timer.dump(os.path.join(log_dir, "stage_times.json"))
     return run_target_mode(bam_path, ref_path, out_dir, cfg,
                            target_bed=bed_path, refine=refine,
                            num_workers=num_workers)

@@ -12,6 +12,7 @@ native signature scan must equal its Python scan on that genome."""
 
 import filecmp
 import importlib.util
+import json
 import os
 
 import pytest
@@ -100,7 +101,29 @@ def test_auto_mode_matches_jax(genomes, tmp_path, monkeypatch, dtype,
         assert filecmp.cmp(os.path.join(want, name), os.path.join(got, name),
                            shallow=False), name
     with open(os.path.join(got, names[0])) as f:
-        assert [ln.split("\t")[0] for ln in f] == chroms
+        bed_chroms = [ln.split("\t")[0] for ln in f]
+    assert bed_chroms == chroms
+    # step 0's parts, timed by the port; each chromosome's device stats
+    # count its tiles by encoding and each bucket's chunks and regions
+    with open(os.path.join(got, "log", "stage_times.json")) as f:
+        step0 = set(json.load(f))
+    assert step0 == ({"load", "scan", "detect", "bed"}
+                     | ({"coverage"} if dtype == "CLR" else set())
+                     | ({"prior"} if prior else set()))
+    if execution == "device":
+        for c in chroms:
+            with open(os.path.join(got, c, "log", "device_stats.json")) as f:
+                st = json.load(f)
+            tiles = st["tiles_by_encoding"]
+            assert sum(tiles.values()) == bed_chroms.count(c)
+            assert tiles.get("host", 0) == st["n_host_fallback"]
+            assert sum(b["chunks"] for b in st["buckets"].values()) == \
+                st["n_chunks"] > 0
+            assert sum(b["regions"] for b in st["buckets"].values()) == \
+                sum(n for k, n in tiles.items() if k != "host")
+            for name, b in st["buckets"].items():
+                assert name == "-".join(map(str, b["key"]))
+                assert b["chunks"] * b["G"] >= b["regions"]
     _, calls = read_vcf(os.path.join(got, "FocalSV_Final_SV.vcf"))
     assert {r.chrom for r in calls} == set(chroms)
     detect = preset(dtype).detect
