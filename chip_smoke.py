@@ -118,13 +118,30 @@ on the card in phases, and exits non-zero at the first phase that fails:
    seconds, chunks, host fallbacks, bytes, the dispatch window), the
    buckets hit with B2's or B3's launch plan, the tiles by encoding, peak
    host RSS, the card's peak allocation and recall, precision and F1
-   against the truth are printed, not gated.
+   against the truth are printed, not gated;
+13. the port's measurement modules (focalsv_tpu_torch/benches/) on the
+   card.  13a: benches.bench at bench.py's full 256 regions (SIZE_MIX at
+   30x, seeds 1000+i), threads (--mp 0), one timed device pass after its
+   warm pass and one timed host pass (the host baseline, a subprocess on
+   the CPU) -- the repeats are the one cut (bench: 5 and 3); the device
+   records must equal the host records (each region's keys), no tile may
+   fall back to the host and B2 must launch; then B2 at the workload's
+   largest bucket against its plain version byte for byte, timed, with
+   its bound and launch plan.  13b: benches.bench_accuracy_complex at 2
+   trials a type (12 by default), with the native host kernel's cap at 0
+   as in phase 8 (at the bench's defaults every DP of the aligner fits
+   under it), so that B1 and B4 must launch.  13c: benches.bench_accuracy
+   at 2 regions a (dtype, case) (20 by default), guided, in this process
+   (--procs 1; 2 by default), each dtype's F1 printed beside PARITY.md's,
+   and the encoding its noisy tiles take.  13d: benches.bench_scaling at
+   1 and 2 shards (two logical shards of the one card): each region's
+   result equal at both, and B2 launched.
 
 Phase 4 also prints the region step's card time by kernel name for one
 delta and one rows chunk (torch.profiler); each must take at most 5
 launches and copies.  B2's and B3's launches are read from their counts on
-every path that runs the region step (phases 4, 5, 6, 6b, 7, 11 and 12),
-B6's on each run of phases 9b and 12.  The
+every path that runs the region step (phases 4, 5, 6, 6b, 7, 11, 12 and
+13), B6's on each run of phases 9b, 12 and 13.  The
 script runs unchanged on a machine with several cards: phase 11's mesh and
 ranks take a card each.
 
@@ -173,11 +190,9 @@ INT32_OPS_PER_S = 67e12 / 4
 B1_OPS_PER_CELL = 30
 # integer operations per step of a walk (index, load, mask, state, emit)
 B4_OPS_PER_STEP = 10
-# kernel B2's integer operations: per column of a region, over its three
-# sweeps (events into the tile, two scans, the counts, the het test and the
-# strip key; the two votes, their argmax and the track), and per (read,
-# site) entry of a MEC round (the assignment's and the vote's bit tests)
-B2_OPS_PER_COLUMN = 100
+# integer operations of kernel B2 a (read, site) entry of a MEC round (the
+# assignment's and the vote's bit tests), which B3 shares; B2's own bound
+# is benches/bench.py::b2_bound
 B2_OPS_PER_ENTRY = 10
 # card cycles a timed run of queued calls waits behind (some 10 ms, past
 # the host's time to queue 20 calls of a wrapper)
@@ -540,26 +555,11 @@ def delta_kwargs(key, G, cfg) -> dict:
 
 
 def b2_bound(dev_buf, out, kw) -> tuple[float, str]:
-    """B2's least time on the card for one chunk: its bytes (the chunk read
-    once, the results written once) over the memory rate, against its
-    integer operations over the int32 rate.  The operations count this
-    run's data: every column, and the (read, site) entries of the MEC
-    rounds the data needs (the fewest rounds that give the same bytes) plus
-    the final assignment."""
-    from focalsv_tpu_torch.parallel import region_step as rs
-    n_sites = out[:, :4].contiguous().view(torch.int32).reshape(-1).long()
-    rounds = kw["mec_iters"]
-    for k in range(kw["mec_iters"]):
-        if torch.equal(rs.phase_consensus_delta_flat(
-                dev_buf, **dict(kw, mec_iters=k)), out):
-            rounds = k
-            break
-    entries = int(n_sites.sum()) * kw["R"] * (rounds + 1)
-    ops = (kw["G"] * kw["L"] * B2_OPS_PER_COLUMN
-           + entries * B2_OPS_PER_ENTRY)
-    t_bytes = (dev_buf.numel() + out.numel()) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+    """B2's least time on the card for one chunk, as the port's bench
+    module counts it (benches/bench.py::b2_bound): its bytes over the
+    memory rate against the integer operations this run's data needs."""
+    from focalsv_tpu_torch.benches.bench import b2_bound as bound
+    return bound(dev_buf, out, kw)
 
 
 def rows_cells(buf: np.ndarray, kw) -> int:
@@ -2466,6 +2466,159 @@ def auto_mode(work: str, smi: str) -> dict:
     return dict(launches=launches, b2=b2, b3=b3)
 
 
+# -- phase 13 ---------------------------------------------------------------
+
+# bench.py's workload at its full 256 regions, one timed pass of each mode
+BENCH_REGIONS = 256
+# the accuracy matrix's regions a (dtype, case) and the complex-SV trials a
+# type that the smoke runs (the benches' defaults: 20 and 12)
+ACCURACY_REGIONS = 2
+COMPLEX_TRIALS = 2
+# PARITY.md's round-5 guided F1 of each dtype (12 regions a class)
+PARITY_F1 = {"HIFI": 0.979, "CLR": 0.987, "ONT": 0.983}
+
+
+def bench_launches(path: str, before: dict) -> dict:
+    """The kernels' launches on a path since ``before`` (a launch_counts()
+    taken just before it)."""
+    from focalsv_tpu_torch.benches.bench_accuracy import launch_counts
+    now = launch_counts()
+    out = {k: now[k] - before[k] for k in now}
+    log(f"[bench] launches on {path}: {json.dumps(out)}")
+    return out
+
+
+def bench_modules(work: str, smi: str) -> dict:
+    """Phase 13: the port's measurement modules (focalsv_tpu_torch/benches)
+    on the card.  13a bench at 256 regions, threads (--mp 0), one timed
+    device and one timed host pass; 13b bench_accuracy_complex, 2 trials a
+    type, every DP of the aligner on the card; 13c bench_accuracy, 2 regions
+    a (dtype, case), guided, one process; 13d bench_scaling at 1 and 2
+    shards.  Returns the kernels' launches by path and B2's row at bench's
+    largest bucket."""
+    from focalsv_tpu_torch.benches import (bench, bench_accuracy,
+                                           bench_accuracy_complex,
+                                           bench_scaling)
+    from focalsv_tpu_torch.benches.bench_accuracy import launch_counts
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.ops import align as talign
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    t_phase = time.perf_counter()
+    log(f"[bench] card: {smi}")
+    checks, launches = {}, {}
+
+    # 13a: bench.py's 256 regions through the threaded device path and the
+    # host baseline (a subprocess on the CPU)
+    args = bench.parse_args(["--regions", str(BENCH_REGIONS), "--mp", "0",
+                             "--repeats", "1", "--base-repeats", "1",
+                             "--jobs-dir", os.path.join(work, "bench")])
+    t0 = time.perf_counter()
+    os.makedirs(args.jobs_dir)
+    jobs = bench._make_jobs(args.jobs_dir, args.regions, args.coverage)
+    log(f"[bench] {len(jobs)} regions simulated and written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    before = launch_counts()
+    res = bench.run(args)
+    launches["bench_256"] = bench_launches("bench_256", before)
+    line = res["json"]
+    log(json.dumps(line))
+    with contextlib.redirect_stderr(sys.stdout):
+        bench.report(args, res)
+    ks = bench.measure_kernel_compute(jobs[3 : 3 + 16 : 4], res["cfg"],
+                                      DEVICE)
+    with contextlib.redirect_stderr(sys.stdout):
+        bench.report_kernel(args, ks, res["stats"])
+    checks["bench device records == host records"] = (
+        line["records_equal"] and line["records"] > 0)
+    checks["bench n_host_fallback == 0"] = line["n_host_fallback"] == 0
+    checks["B2 launched on bench_256"] = launches["bench_256"]["B2"] > 0
+    b2 = [dict(case=f"bench {tuple(ks['shape'])} G={ks['G']}",
+               L=ks["shape"][2], max_abs_err=ks["max_abs_err"], ms=ks["ms"],
+               queued_ms=ks["queued_ms"], plain_ms=ks["plain_ms"],
+               bound_ms=ks["bound_ms"], bound_by=ks["bound_by"],
+               **(ks["plan"] or {}))]
+
+    # 13b: the complex-SV trials through the port's aligner; its DPs fit the
+    # native host kernel's cap at the bench's defaults, so the cap goes to
+    # 0 as in phase 8, and every DP of the aligner runs B1 and B4
+    cap = talign.NATIVE_DP_MAX_CELLS
+    talign.NATIVE_DP_MAX_CELLS = 0
+    before = launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(sys.stdout):
+            rows = bench_accuracy_complex.main(["--trials",
+                                                str(COMPLEX_TRIALS)])
+    finally:
+        talign.NATIVE_DP_MAX_CELLS = cap
+    launches["bench_accuracy_complex"] = bench_launches(
+        "bench_accuracy_complex", before)
+    log(f"[bench] bench_accuracy_complex, {COMPLEX_TRIALS} trials a type, "
+        f"every DP on the card, in {time.perf_counter() - t0:.1f} s: " +
+        ", ".join(f"{r['metric']} {r['value']}" for r in rows))
+    for k in ("B1", "B4"):
+        checks[f"{k} launched on bench_accuracy_complex"] = (
+            launches["bench_accuracy_complex"][k] > 0)
+
+    # 13c: the accuracy matrix, guided, in this process
+    before = launch_counts()
+    t0 = time.perf_counter()
+    rows = bench_accuracy.main(["--regions", str(ACCURACY_REGIONS),
+                                "--procs", "1"])
+    launches["bench_accuracy"] = bench_launches("bench_accuracy", before)
+    for r in rows:
+        if r["case"] == "ALL":
+            log(f"[bench] bench_accuracy {r['dtype']}, "
+                f"{ACCURACY_REGIONS} regions a class: F1 {r['f1']} "
+                f"(recall {r['recall']}, precision {r['precision']}, GT "
+                f"concordance {r['gt_concordance']}) beside PARITY.md's "
+                f"{PARITY_F1[r['dtype']]} at 12 regions a class")
+    log(f"[bench] bench_accuracy in {time.perf_counter() - t0:.1f} s")
+    checks["bench_accuracy rows"] = len(rows) == 3 * 8
+    # which encoding the matrix's noisy tiles take (B3 runs dense ones)
+    enc: dict = {}
+    for dtype in ("CLR", "ONT"):
+        cfg = preset(dtype)
+        for case in bench_accuracy.CASES:
+            rg = bench_accuracy.make_case(4000, case,
+                                          bench_accuracy.ERR_MODELS[dtype])
+            key = dx._bucket_key(dx.build_tile(rg.reads, rg.ref, 0,
+                                               rg.chrom, cfg), cfg)
+            kinds = enc.setdefault(dtype, {})
+            kind = "host" if key is None else key[0]
+            kinds[kind] = kinds.get(kind, 0) + 1
+    log(f"[bench] bench_accuracy's noisy tiles by encoding (seed 4000, "
+        f"every class): {json.dumps(enc)}")
+
+    # 13d: the sharded region step at 1 and 2 shards
+    before = launch_counts()
+    tempdir = tempfile.tempdir
+    tempfile.tempdir = work              # the sweep's jobs
+    try:
+        doc, _ = bench_scaling.sweep(bench_scaling.parse_args(
+            ["--devices", "1", "2"]))
+    finally:
+        tempfile.tempdir = tempdir
+    launches["bench_scaling"] = bench_launches("bench_scaling", before)
+    for r in doc["rows"]:
+        log(f"[bench] bench_scaling n={r['n_devices']} {r['shards']}: "
+            f"{r['regions_per_dispatch']} regions, wall "
+            f"{r['wall_ms_median']} ms (min {r['wall_ms_min']}), "
+            f"{r['core_ms_per_region']} unit-ms a region, results equal "
+            f"to one shard's: {r['records_equal']}")
+    checks["bench_scaling records equal at 1 and 2 shards"] = (
+        doc["records_equal"])
+    checks["B2 launched on bench_scaling"] = (
+        launches["bench_scaling"]["B2"] > 0)
+    for name, ok in checks.items():
+        log(f"[bench] check {name}: {ok}")
+    log(f"[bench] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 13 checks failed: {failed}")
+    return dict(launches=launches, b2=b2)
+
+
 def child_pids() -> list[int]:
     """The processes whose parent is this one, zombies left out."""
     me, out = os.getpid(), []
@@ -2556,6 +2709,7 @@ def main() -> int:
         evaluation_phase(regions, work, main_path["guided_vcf"])
         mesh = multi_device(rng, jobs, main_path, work)
         auto = auto_mode(work, smi)
+        benches = bench_modules(work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     left = stop_helpers()
@@ -2578,7 +2732,8 @@ def main() -> int:
                    "complex_sv_target": n_complex,
                    **{path: counts[k] for path, counts in mesh.items()},
                    **{path: counts[("B1", "B4")[k]]
-                      for path, counts in auto["launches"].items()}}
+                      for path, counts in {**auto["launches"],
+                                           **benches["launches"]}.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2590,12 +2745,13 @@ def main() -> int:
             # no single PyTorch call computes a banded affine-gap DP or
             # walks its direction bytes
             "library_ms": None})
-    for path, counts in auto["launches"].items():
+    for path, counts in {**auto["launches"],
+                         **benches["launches"]}.items():
         B2_LAUNCHES[path] = counts["B2"]
         B3_LAUNCHES[path] = counts["B3"]
         B6_LAUNCHES[path] = counts["B6"]
     for path in ("golden_cli", "target_mode_guided", "sharded_region_step",
-                 "auto_mode"):
+                 "auto_mode", "bench_256", "bench_scaling"):
         if B2_LAUNCHES.get(path, 0) == 0:
             raise AssertionError(f"B2 was not launched on the path {path}")
     hifi = min(b2, key=lambda r: r["L"])    # the HiFi chunk at L 16384
@@ -2605,18 +2761,18 @@ def main() -> int:
         "replaces": "focalsv_tpu/parallel/region_step.py:657",
         "launches": sum(B2_LAUNCHES.values()),
         "launches_by_path": dict(B2_LAUNCHES),
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in b2 + b2_cases + auto["b2"]),
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           b2 + b2_cases + auto["b2"] + benches["b2"]),
         "ms": hifi["ms"], "plain_ms": hifi["plain_ms"],
         "bound_ms": hifi["bound_ms"], "bound_by": hifi["bound_by"],
         # no single PyTorch call computes the region step
         "library_ms": None,
         "cluster": hifi.get("cluster"), "smem_bytes": hifi.get("smem_bytes"),
         "queued_ms": hifi["queued_ms"],
-        # phase 4's chunks by L, then phase 12's by case
+        # phase 4's chunks by L, then phase 12's and 13's by case
         **{f"{k}_by_chunk": {
             **{f"L{r['L']}": r[k] for r in b2},
-            **{r["case"]: r[k] for r in auto["b2"]}}
+            **{r["case"]: r[k] for r in auto["b2"] + benches["b2"]}}
             for k in ("ms", "queued_ms", "plain_ms", "bound_ms")}})
     for path in ("region_step_chunks", "noisy_target_mode",
                  "sharded_region_step", "dry_run"):

@@ -1,12 +1,15 @@
 """Accuracy benchmark: recall / precision / F1 / GT concordance per dtype,
 over BASIC and ADVERSARIAL region classes.
 
-The statistical analog of the reference's HG002 1,000-region Truvari
-evaluation (BASELINE.md accuracy table; protocol
-evaluation/Table2-4/truvari_eval_wgs.sh:20-24 -- refdist 500, pctsize 0.5,
-pctsim 0.5, sizemin 50): N randomized SV-rich regions per (dtype, case), the
-full per-region stack (phase -> assemble -> call -> refine), Truvari-protocol
-matching in-process (evaluation/compare.py).
+The port's counterpart of the repository's bench_accuracy.py: the same
+cases (ERR_MODELS, CASES and make_case give the same reads, reference and
+truth for the same seed) through focalsv_tpu_torch.  The statistical analog
+of the reference's HG002 1,000-region Truvari evaluation (BASELINE.md
+accuracy table; protocol evaluation/Table2-4/truvari_eval_wgs.sh:20-24 --
+refdist 500, pctsize 0.5, pctsim 0.5, sizemin 50): N randomized SV-rich
+regions per (dtype, case), the full per-region stack (phase -> assemble ->
+call -> refine), Truvari-protocol matching in-process
+(evaluation/compare.py).
 
 Case classes (the stressors a benign uniform sim cannot probe):
 - basic:   1-3 SVs, log-uniform 50-2000 bp, random type/genotype
@@ -18,9 +21,19 @@ Case classes (the stressors a benign uniform sim cannot probe):
 - large:   one 5-50 kb SV (wide-band DP + split-alignment regime)
 - dropout: a 70% coverage hole over one flank of a het SV
 
-Usage: python bench_accuracy.py [--regions 20] [--dtypes HIFI,CLR,ONT]
-       [--cases basic,repeat,segdup,nested,large,dropout]
-Prints one JSON line per (dtype, case) plus a per-dtype rollup.
+Each region runs the per-region host path (pipeline/region.py::
+process_region), whose DPs past the native host kernel's cap go to the
+card: kernel B1 and B4 (the banded DP and its traceback, mostly under
+--assembly olc) and, with --pairhmm, kernel B6 (the pair-HMM forward
+pass).  The work is spread over --procs spawned processes (2 by default);
+on a machine with one card each of them may open its own CUDA context on
+it.  FOCALSV_TORCH_DEVICE=cpu runs the plain versions on the CPU.
+
+Usage: python -m focalsv_tpu_torch.benches.bench_accuracy [--regions 20]
+       [--dtypes HIFI,CLR,ONT]
+       [--cases basic,repeat,segdup,nested,large,dropout,alnnoise]
+Prints one JSON line per (dtype, case) plus a per-dtype rollup, each with
+the kernels' launches its regions made; a commented line names the card.
 """
 
 import argparse
@@ -157,8 +170,6 @@ def _child_init(dtype: str, pairhmm: bool = False,
                 assembly: str = "guided", post_refine: bool = False):
     import dataclasses
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
     from focalsv_tpu_torch.config import preset
     cfg = preset(dtype)
     if pairhmm:
@@ -172,21 +183,48 @@ def _child_init(dtype: str, pairhmm: bool = False,
     _state["post_refine"] = post_refine
 
 
+def run_region(region, cfg, mode: str = "host", device=None):
+    """One simulated region through the port: the per-region host path
+    ("host", pipeline/region.py::process_region), or the production device
+    path ("device": tile -> the region step on ``device`` -> host finish,
+    as the accuracy gate runs it).  Returns the RegionResult."""
+    if mode == "device":
+        from focalsv_tpu_torch.pipeline import device_exec as dx
+        tile = dx.build_tile(region.reads, region.ref, 0, region.chrom, cfg)
+        dev_outs = dx.run_device_step([tile], cfg, device=device)
+        return dx.process_region_device(tile, dev_outs.get(0), cfg)
+    from focalsv_tpu_torch.pipeline.region import process_region
+    return process_region(region.reads, region.ref, 0, region.chrom, cfg)
+
+
+def score(records, region, dtype: str):
+    """Truvari-protocol match of a region's records against its truth."""
+    from focalsv_tpu_torch.evaluation.compare import (match_records,
+                                                      truth_from_sim)
+    truth = truth_from_sim(region.svs, region.chrom, region.ref)
+    return match_records(records, truth, check_seq=(dtype == "HIFI"))
+
+
+def launch_counts() -> dict:
+    """The kernels' launch counts in this process: B1 and B4 (the banded
+    DP and its traceback), B2 and B3 (the region step), B6 (the pair-HMM)."""
+    from focalsv_tpu_torch.ops import align_cuda, pairhmm_cuda, region_cuda
+    return {"B1": align_cuda.launches, "B4": align_cuda.traceback_launches,
+            "B2": region_cuda.launches, "B3": region_cuda.rows_launches,
+            "B6": pairhmm_cuda.launches}
+
+
 def _child_run(args):
     seed, case, err = args
-    from focalsv_tpu_torch.evaluation.compare import match_records, truth_from_sim
-    from focalsv_tpu_torch.pipeline.region import process_region
-
+    before = launch_counts()
     region = make_case(seed, case, err)
-    res = process_region(region.reads, region.ref, 0, region.chrom,
-                         _state["cfg"])
-    records = res.records
+    records = run_region(region, _state["cfg"]).records
     if _state.get("post_refine"):
         records = _apply_refine(records, region)
-    truth = truth_from_sim(region.svs, region.chrom, region.ref)
-    b = match_records(records, truth,
-                      check_seq=(_state["dtype"] == "HIFI"))
-    return b.tp, b.fp, b.fn, b.gt_correct, b.gt_total
+    b = score(records, region, _state["dtype"])
+    after = launch_counts()
+    return (b.tp, b.fp, b.fn, b.gt_correct, b.gt_total,
+            {k: after[k] - before[k] for k in after})
 
 
 def _apply_refine(records, region):
@@ -215,8 +253,9 @@ def _apply_refine(records, region):
     return refined
 
 
-def main():
-    ap = argparse.ArgumentParser()
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python -m focalsv_tpu_torch.benches.bench_accuracy")
     ap.add_argument("--regions", type=int, default=20,
                     help="regions per (dtype, case)")
     ap.add_argument("--dtypes", default="HIFI,CLR,ONT")
@@ -230,13 +269,30 @@ def main():
                     help="apply the chromosome-level step-5 refine stack "
                          "(coverage bands + GT impute/correct + ONT final "
                          "process) before scoring")
-    args = ap.parse_args()
+    return ap.parse_args(argv)
 
+
+def _sum_launches(rows) -> dict:
+    return {k: sum(r[5][k] for r in rows) for k in rows[0][5]}
+
+
+def main(argv=None) -> list[dict]:
+    """Prints and returns the rows: one a (dtype, case), then each dtype's
+    rollup (case "ALL")."""
     import multiprocessing as mp
+
+    from focalsv_tpu_torch.device import resolve_device
+    args = parse_args(argv)
+    device = resolve_device()
+    if device.type == "cuda":
+        from focalsv_tpu_torch.benches.bench import card_name
+        print(f"# card: {card_name()}", file=sys.stderr, flush=True)
     ctx = mp.get_context("spawn")
+    out = []
     for dtype in args.dtypes.split(","):
         err = dict(ERR_MODELS[dtype])
         roll = [0, 0, 0, 0, 0]
+        roll_launches = {}
         for case in args.cases.split(","):
             jobs = [(4000 + 97 * i, case, err) for i in range(args.regions)]
             if args.procs > 1:
@@ -252,28 +308,36 @@ def main():
             tp, fp, fn, gt_c, gt_t = (sum(r[i] for r in rows) for i in range(5))
             for i, v in enumerate((tp, fp, fn, gt_c, gt_t)):
                 roll[i] += v
+            launches = _sum_launches(rows)
+            for k, v in launches.items():
+                roll_launches[k] = roll_launches.get(k, 0) + v
             recall = tp / max(tp + fn, 1)
             precision = tp / max(tp + fp, 1)
             f1 = 2 * precision * recall / max(precision + recall, 1e-9)
-            print(json.dumps({
+            out.append({
                 "dtype": dtype, "case": case, "regions": args.regions,
                 "tp": tp, "fp": fp, "fn": fn,
                 "recall": round(recall, 4), "precision": round(precision, 4),
                 "f1": round(f1, 4),
                 "gt_concordance": round(gt_c / max(gt_t, 1), 4),
-            }))
+                "launches": launches,
+            })
+            print(json.dumps(out[-1]))
             sys.stdout.flush()
         tp, fp, fn, gt_c, gt_t = roll
         recall = tp / max(tp + fn, 1)
         precision = tp / max(tp + fp, 1)
         f1 = 2 * precision * recall / max(precision + recall, 1e-9)
-        print(json.dumps({
+        out.append({
             "dtype": dtype, "case": "ALL", "tp": tp, "fp": fp, "fn": fn,
             "recall": round(recall, 4), "precision": round(precision, 4),
             "f1": round(f1, 4),
             "gt_concordance": round(gt_c / max(gt_t, 1), 4),
-        }))
+            "launches": roll_launches,
+        })
+        print(json.dumps(out[-1]))
         sys.stdout.flush()
+    return out
 
 
 if __name__ == "__main__":

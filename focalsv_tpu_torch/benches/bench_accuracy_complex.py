@@ -1,6 +1,7 @@
 """Complex-SV accuracy benchmark: INV / DUP / TRA recall + precision.
 
-The statistical analog of the reference's HCC1395 somatic TRA/INV/DUP
+The port's counterpart of the repository's bench_accuracy_complex.py, on
+the same trials.  The statistical analog of the reference's HCC1395 somatic TRA/INV/DUP
 evaluation (SURVEY.md section 6; evaluation/Table5 SURVIVOR protocol):
 randomized trials per SV type, each running the REAL stack -- reads sampled
 from a rearranged donor haplotype, aligned with the framework's
@@ -13,8 +14,18 @@ A call matches truth when both breakpoints land within `--tol` bp (the
 SURVIVOR merge distance analog, default 1000).  Calls on SV-free control
 trials count as false positives for precision.
 
-Usage: python bench_accuracy_complex.py [--trials 12] [--tol 1000]
-Prints one JSON line per SV type plus a combined line.
+The aligner is the port's align_engine.Aligner: a gap fill or extension
+whose DP exceeds the native host kernel's cap (ops/align.py::
+NATIVE_DP_MAX_CELLS) runs kernel B1 (the banded DP) and B4 (its
+traceback) on the card.  At this bench's read length (12 kb) every DP fits
+under the cap, so a run at the defaults launches neither; the launch
+counts are printed so that a run shows which route its DPs took.
+FOCALSV_TORCH_DEVICE=cpu runs the plain versions on the CPU.
+
+Usage: python -m focalsv_tpu_torch.benches.bench_accuracy_complex
+       [--trials 12] [--tol 1000]
+Prints one JSON line per SV type plus a combined line, and commented lines
+with the card and the launches of B1 and B4.
 """
 
 import argparse
@@ -194,13 +205,24 @@ def _run_type(name, trial_fn, n_trials, tol, seed0):
                 tp=tp, fn=fn, fp=fp)
 
 
-def main():
-    ap = argparse.ArgumentParser()
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python -m focalsv_tpu_torch.benches.bench_accuracy_complex")
     ap.add_argument("--trials", type=int, default=12)
     ap.add_argument("--tol", type=int, default=1000)
     ap.add_argument("--types", default="INV,HETINV,DUP,TRA")
-    args = ap.parse_args()
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> list[dict]:
+    """Prints and returns the rows: one a type, then the combined line."""
+    from focalsv_tpu_torch.device import resolve_device
+    from focalsv_tpu_torch.ops import align_cuda
+    args = parse_args(argv)
+    if resolve_device().type == "cuda":
+        from focalsv_tpu_torch.benches.bench import card_name
+        print(f"# card: {card_name()}", file=sys.stderr, flush=True)
+    b1, b4 = align_cuda.launches, align_cuda.traceback_launches
     fns = {"INV": _inv_trial, "HETINV": _het_inv_trial, "DUP": _dup_trial,
            "TRA": _tra_trial}
     rows = []
@@ -211,8 +233,12 @@ def main():
         print(json.dumps(row))
         sys.stdout.flush()
     mean_f1 = round(sum(r["value"] for r in rows) / len(rows), 3)
-    print(json.dumps({"metric": "complexsv_mean_f1", "value": mean_f1,
-                      "unit": "F1", "vs_baseline": None}))
+    rows.append({"metric": "complexsv_mean_f1", "value": mean_f1,
+                 "unit": "F1", "vs_baseline": None})
+    print(json.dumps(rows[-1]))
+    print(f"# launches: B1 {align_cuda.launches - b1}, B4 "
+          f"{align_cuda.traceback_launches - b4}", file=sys.stderr)
+    return rows
 
 
 if __name__ == "__main__":

@@ -1,16 +1,23 @@
 """Auto-mode end-to-end scale benchmark.
 
-One number for the FULL auto path -- native WGS signature scan
+The port's counterpart of the repository's bench_auto.py, on the same
+genome.  One number for the FULL auto path -- native WGS signature scan
 (scan/fast_scan.py) -> step-0 region detection (regions/detect.py) ->
-target pipeline over the detected BED -- on a multi-chromosome simulated
-genome, with peak RSS and a fast_scan-vs-read_scan signature parity check
-at scale.  The reference analog is `0_define_region.py:520-543` followed
-by the per-chromosome wrapper loop (`focalsv.py:86-89`).
+target pipeline over the detected BED, in device execution on the card --
+on a multi-chromosome simulated genome (testing/auto_cases.py, the same
+BAM and FASTA bytes as bench_auto.py's builder), with peak RSS and a
+fast_scan-vs-read_scan signature parity check at scale.  The reference
+analog is `0_define_region.py:520-543` followed by the per-chromosome
+wrapper loop (`focalsv.py:86-89`).
 
-Usage: python bench_auto.py [--chroms 4] [--chrom-len 400000]
-       [--coverage 25] [--svs-per-chrom 6] [--dtype HIFI]
-Prints one JSON line: {"metric": "auto_regions_per_sec", ...} plus
-commented detail rows (scan rate, detection counts, recall, peak RSS).
+Usage: python -m focalsv_tpu_torch.benches.bench_auto [--chroms 4]
+       [--chrom-len 400000] [--coverage 25] [--svs-per-chrom 6]
+       [--dtype HIFI]
+Runs on the card (FOCALSV_TORCH_DEVICE=cpu: the plain versions on the
+CPU).  Prints one JSON line: {"metric": "auto_regions_per_sec", ...} plus
+commented detail rows (the card, step 0 by part, scan rate, detection
+counts, recall, peak RSS).  The genome lives in a temporary directory that
+is removed at the end.
 """
 
 import argparse
@@ -22,146 +29,18 @@ import tempfile
 import time
 
 
-def build_genome_chunked(tmp, n_chroms, chrom_len, coverage, svs_per_chrom,
-                         dtype, chunk: int = 2_000_000):
-    """Large-chromosome builder: simulate in ``chunk``-bp windows and
-    stream records straight into the BAM so the BUILDER's memory never
-    holds the genome's reads -- at >=40 Mb the peak-RSS gate must measure
-    the pipeline, not the fixture factory.  Reads near chunk boundaries
-    simply don't span them (a simulation-only artifact; SVs sit in chunk
-    interiors)."""
-    import numpy as np
-
-    from focalsv_tpu_torch.evaluation.compare import truth_from_sim
-    from focalsv_tpu_torch.io import bam as bamio
-    from focalsv_tpu_torch.io.fasta import write_fasta
-    from focalsv_tpu_torch.testing import simulate as sim
-
-    err = {"HIFI": dict(sub_rate=0.002),
-           "CLR": dict(sub_rate=0.06, ins_rate=0.03, del_rate=0.03),
-           "ONT": dict(sub_rate=0.04, ins_rate=0.02, del_rate=0.02)}[dtype]
-    rng = np.random.default_rng(4242)
-    names = [f"chr{ci + 1}" for ci in range(n_chroms)]
-    bam_path = os.path.join(tmp, "wgs.bam")
-    w = bamio.BamWriter(bam_path, names, [chrom_len] * n_chroms)
-    truth = []
-    refs = []
-    n_chunks = -(-chrom_len // chunk)
-    # faithful distribution: chunk k gets quota[k], summing EXACTLY to
-    # svs_per_chrom (a max(1, //) floor inflated the request 3x at 40 Mb)
-    quota = [svs_per_chrom // n_chunks
-             + (1 if k < svs_per_chrom % n_chunks else 0)
-             for k in range(n_chunks)]
-    for ci, name in enumerate(names):
-        parts = []
-        for ki in range(n_chunks):
-            off = ki * chunk
-            clen = min(chunk, chrom_len - off)
-            svs = []
-            span = max((clen - 40_000) // max(quota[ki], 1), 10_000)
-            for si in range(quota[ki]):
-                pos = 20_000 + si * span + int(rng.integers(0, span - 8_000))
-                if pos >= clen - 20_000:
-                    break
-                length = int(np.exp(rng.uniform(np.log(60), np.log(3_000))))
-                svtype = "DEL" if rng.random() < 0.5 else "INS"
-                gt = "0/1" if rng.random() < 0.5 else "1/1"
-                seq = (rng.integers(0, 4, length).astype(np.uint8)
-                       if svtype == "INS" else None)
-                svs.append(sim.SimSV(svtype, pos, length, gt, seq=seq))
-            region = sim.simulate_region(
-                seed=9000 + 1000 * ci + ki, ref_len=clen, coverage=coverage,
-                n_snps=clen // 1_200, svs=svs, chrom=name, **err)
-            for rec in region.reads:
-                rec.ref_id = ci
-                rec.pos += off
-                w.write(rec)
-            truth.extend(truth_from_sim(region.svs, name, region.ref,
-                                        ref_offset=off))
-            parts.append(region.ref)
-            del region
-        refs.append((name, np.concatenate(parts)))
-    w.close()
-    bamio.build_bai(bam_path)
-    ref_path = os.path.join(tmp, "ref.fa")
-    write_fasta(ref_path, refs)
-    return bam_path, ref_path, truth
-
-
-def build_genome(tmp, n_chroms, chrom_len, coverage, svs_per_chrom, dtype):
-    import numpy as np
-
-    from focalsv_tpu_torch.evaluation.compare import truth_from_sim
-    from focalsv_tpu_torch.io import bam as bamio
-    from focalsv_tpu_torch.io.fasta import write_fasta
-    from focalsv_tpu_torch.testing import simulate as sim
-
-    if chrom_len > 2_000_000:
-        return build_genome_chunked(tmp, n_chroms, chrom_len, coverage,
-                                    svs_per_chrom, dtype)
-    err = {"HIFI": dict(sub_rate=0.002),
-           "CLR": dict(sub_rate=0.06, ins_rate=0.03, del_rate=0.03),
-           "ONT": dict(sub_rate=0.04, ins_rate=0.02, del_rate=0.02)}[dtype]
-    rng = np.random.default_rng(4242)
-    chroms, truth = {}, []
-    for ci in range(n_chroms):
-        name = f"chr{ci + 1}"
-        svs = []
-        span = (chrom_len - 40_000) // svs_per_chrom
-        for si in range(svs_per_chrom):
-            pos = 20_000 + si * span + int(rng.integers(0, span - 8_000))
-            length = int(np.exp(rng.uniform(np.log(60), np.log(3_000))))
-            svtype = "DEL" if rng.random() < 0.5 else "INS"
-            gt = "0/1" if rng.random() < 0.5 else "1/1"
-            seq = (rng.integers(0, 4, length).astype(np.uint8)
-                   if svtype == "INS" else None)
-            svs.append(sim.SimSV(svtype, pos, length, gt, seq=seq))
-        region = sim.simulate_region(seed=9000 + ci, ref_len=chrom_len,
-                                     coverage=coverage,
-                                     n_snps=chrom_len // 1_200, svs=svs,
-                                     chrom=name, **err)
-        chroms[name] = region
-        truth.extend(truth_from_sim(region.svs, name, region.ref))
-    bam_path = os.path.join(tmp, "wgs.bam")
-    w = bamio.BamWriter(bam_path, list(chroms),
-                        [len(chroms[c].ref) for c in chroms])
-    for ci, c in enumerate(chroms):
-        for rec in chroms[c].reads:
-            rec.ref_id = ci
-            w.write(rec)
-    w.close()
-    bamio.build_bai(bam_path)
-    ref_path = os.path.join(tmp, "ref.fa")
-    write_fasta(ref_path, [(c, chroms[c].ref) for c in chroms])
-    return bam_path, ref_path, truth
-
-
 def scan_parity_check(bam_path, cfg):
-    """fast_scan (native) vs read_scan (Python) signature parity at scale."""
-    from focalsv_tpu_torch.io import bam as bamio
-    from focalsv_tpu_torch.pipeline.main import _native_chrom_scan
-    from focalsv_tpu_torch.scan.read_scan import scan_chromosome
-
-    bam = bamio.ensure_indexed(bam_path)
+    """fast_scan (native) vs read_scan (Python) signature parity at scale:
+    ((signatures checked, (chromosome, kind) sets that differ), seconds)."""
+    from focalsv_tpu_torch.testing.auto_cases import scan_parity_check
     t0 = time.perf_counter()
-    mism = checked = 0
-    for c in bam.ref_names:
-        nat = _native_chrom_scan(bam, c, cfg)
-        if nat is None:
-            return None, 0.0
-        _, py = scan_chromosome(bam.fetch(c), c, cfg.read_scan,
-                                genotype=False)
-        for kind in ("del_sigs", "ins_sigs"):
-            a = sorted((s.pos, s.length) for s in getattr(nat, kind))
-            b = sorted((s.pos, s.length) for s in getattr(py, kind))
-            checked += len(b)
-            if a != b:
-                mism += 1
-    return (checked, mism), time.perf_counter() - t0
+    p = scan_parity_check(bam_path, cfg)
+    return (p["checked"], len(p["differ"])), time.perf_counter() - t0
 
 
-def main():
-    ap = argparse.ArgumentParser()
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python -m focalsv_tpu_torch.benches.bench_auto")
     ap.add_argument("--chroms", type=int, default=4)
     ap.add_argument("--chrom-len", type=int, default=400_000)
     ap.add_argument("--coverage", type=float, default=25.0)
@@ -172,19 +51,28 @@ def main():
                     help="skip the fast_scan-vs-Python rescan parity check "
                          "(the Python rescan is O(genome) and dominates at "
                          ">=10 Mb; parity is gated at small scale)")
-    args = ap.parse_args()
+    return ap.parse_args(argv)
 
+
+def run(args, tmp: str) -> dict:
+    """Build the genome under tmp, check the scan parity, run auto mode:
+    returns the JSON line's object with the run's regions, calls, truth
+    match, step 0's parts and the seconds of each piece."""
     from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.device import resolve_device
     from focalsv_tpu_torch.evaluation.compare import match_records
     from focalsv_tpu_torch.io.bed import read_bed
     from focalsv_tpu_torch.io.vcf import read_vcf
     from focalsv_tpu_torch.pipeline.main import run_auto_mode
+    from focalsv_tpu_torch.testing.auto_cases import build_genome
 
+    device = resolve_device()
     cfg = preset(args.dtype)
-    tmp = tempfile.mkdtemp(prefix="focalsv_bench_auto_")
+    t0 = time.perf_counter()
     bam, ref, truth = build_genome(tmp, args.chroms, args.chrom_len,
                                    args.coverage, args.svs_per_chrom,
                                    args.dtype)
+    build_s = time.perf_counter() - t0
     genome_bp = args.chroms * args.chrom_len
 
     genome_too_big = args.chroms * args.chrom_len > 8_000_000
@@ -202,26 +90,63 @@ def main():
     _, calls = read_vcf(final)
     b = match_records(calls, truth)
     peak_rss_mb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    with open(os.path.join(out, "log", "stage_times.json")) as f:
+        step0 = json.load(f)
+    chroms = {}
+    for c in sorted({r.chrom for r in regions}):
+        logs = {}
+        for name in ("stage_times", "device_stats"):
+            path = os.path.join(out, c, "log", f"{name}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    logs[name] = json.load(f)
+        chroms[c] = logs
+    return dict(device=device, genome_bp=genome_bp, build_s=build_s,
+                parity=parity, scan_dt=scan_dt, seconds=dt,
+                regions=regions, calls=calls, match=b, step0=step0,
+                chroms=chroms, peak_rss_mb=peak_rss_mb, out=out)
 
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    with tempfile.TemporaryDirectory(prefix="focalsv_bench_auto_") as tmp:
+        r = run(args, tmp)
+    regions, calls, b, dt = r["regions"], r["calls"], r["match"], r["seconds"]
     print(json.dumps({
         "metric": "auto_regions_per_sec",
         "value": round(len(regions) / dt, 3),
         "unit": "regions/s",
         "vs_baseline": None,
-    }))
+        "backend": r["device"].type,
+    }), flush=True)
+    if r["device"].type == "cuda":
+        from focalsv_tpu_torch.benches.bench import card_name
+        print(f"# card: {card_name()}", file=sys.stderr)
     print(f"# auto mode e2e: {args.chroms} chroms x {args.chrom_len} bp "
-          f"({genome_bp / 1e6:.1f} Mb) at {args.coverage}x {args.dtype}: "
+          f"({r['genome_bp'] / 1e6:.1f} Mb) at {args.coverage}x "
+          f"{args.dtype}: genome built in {r['build_s']:.1f} s; "
           f"scan+detect+call in {dt:.1f}s -> {len(regions)} regions, "
           f"{len(calls)} calls; truth recall "
           f"{b.recall:.3f} precision {b.precision:.3f} f1 {b.f1:.3f}; "
-          f"peak RSS {peak_rss_mb:.0f} MB", file=sys.stderr)
-    if parity:
-        checked, mism = parity
+          f"peak RSS {r['peak_rss_mb']:.0f} MB", file=sys.stderr)
+    print(f"# step 0 by part (s): {json.dumps(r['step0'])}",
+          file=sys.stderr)
+    for c, logs in r["chroms"].items():
+        st = logs.get("device_stats", {})
+        print(f"# {c}: stage seconds {json.dumps(logs.get('stage_times'))}; "
+              + " ".join(f"{k}={st[k]}" for k in (
+                  "n_chunks", "n_host_fallback", "device_busy_s",
+                  "tile_build_s", "finish_s", "tiles_by_encoding")
+                  if k in st), file=sys.stderr)
+    if r["parity"]:
+        checked, mism = r["parity"]
         print(f"# fast_scan vs read_scan parity: {checked} signatures, "
               f"{mism} mismatching (chrom, kind) sets; "
-              f"native scan {genome_bp / max(scan_dt, 1e-9) / 1e6:.1f} "
+              f"native scan "
+              f"{r['genome_bp'] / max(r['scan_dt'], 1e-9) / 1e6:.1f} "
               f"Mbp/s (incl. Python rescan)", file=sys.stderr)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -733,3 +733,58 @@ def test_rows_packed_entry_on_card_reaches_the_kernel(cuda):
     torch.cuda.synchronize()
     assert region_cuda.rows_launches == before + 1
     assert torch.equal(got, rs.phase_consensus_rows_flat_plain(dev, **args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,case,seeds", [
+    ("HIFI", "basic", [4000 + 97 * i for i in range(4)]),
+    ("HIFI", "nested", [4000 + 97 * i for i in range(4)]),
+    ("HIFI", "dropout", [4000 + 97 * i for i in range(4)]),
+    ("HIFI", "repeat", [4000 + 97 * i for i in range(4)]),
+    ("CLR", "basic", [4000, 4097]), ("ONT", "basic", [4000, 4097])])
+def test_accuracy_gate_device_cases_on_card(cuda, dtype, case, seeds):
+    """The accuracy gate's device cases (tests/test_accuracy_gate.py's
+    test_hifi_accuracy_floor in device mode and test_noisy_device_floor)
+    with the region step on the card: every SV called exactly, and B2 (B3
+    for a dense tile) launched for every region."""
+    from focalsv_tpu_torch.benches.bench_accuracy import (ERR_MODELS,
+                                                          make_case,
+                                                          run_region, score)
+    from focalsv_tpu_torch.config import preset
+    from focalsv_tpu_torch.ops import region_cuda
+    cfg = preset(dtype)
+    before = region_cuda.launches + region_cuda.rows_launches
+    tp = fp = fn = 0
+    for seed in seeds:
+        region = make_case(seed, case, ERR_MODELS[dtype])
+        b = score(run_region(region, cfg, "device", device=cuda).records,
+                  region, dtype)
+        tp, fp, fn = tp + b.tp, fp + b.fp, fn + b.fn
+    assert fn == 0 and fp == 0 and tp > 0, (dtype, case, tp, fp, fn)
+    assert region_cuda.launches + region_cuda.rows_launches == \
+        before + len(seeds)
+
+
+@pytest.mark.cuda
+def test_bench_module_on_card(cuda, tmp_path, capsys):
+    """focalsv_tpu_torch.benches.bench at 8 regions on the card, threads,
+    one timed pass of each mode: bench.py's JSON keys, the device records
+    equal to the host baseline's, no host fallback, B2 launched, and B2 at
+    the largest bucket held to its plain version byte for byte."""
+    import json
+
+    from focalsv_tpu_torch.benches import bench
+    from focalsv_tpu_torch.ops import region_cuda
+    before = region_cuda.launches
+    rc = bench.main(["--regions", "8", "--mp", "0", "--repeats", "1",
+                     "--base-repeats", "1", "--jobs-dir", str(tmp_path)])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    line = json.loads(out.out.splitlines()[0])
+    assert {"metric", "value", "unit", "vs_baseline", "device", "baseline",
+            "cold_start_s"} <= set(line)
+    assert line["backend"] == "cuda" and line["records_equal"]
+    assert line["records"] > 0 and line["n_host_fallback"] == 0
+    assert region_cuda.launches > before
+    assert "equal to its plain version byte for byte (max_abs_err 0)" in \
+        out.err

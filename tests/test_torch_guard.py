@@ -7,7 +7,7 @@ chromosomes of noisy reads, an OLC region with every DP
 job on the device batch, and every other entry point of the port once (the
 multi-process executor, a host region with pair-HMM realignment, the
 complex-SV, evaluation, somatic, clean-up and call-set CLIs, the dry run on
-a mesh of two shards), and records
+a mesh of two shards, each measurement module's --help), and records
 any attempt to import jax, focalsv_tpu
 or a module below either (an attempt that the port's code might catch and
 pass over would otherwise go unseen).  A second case runs the two-rank entry
@@ -190,6 +190,23 @@ GUARD = BLOCK + textwrap.dedent('''
     kw = {**rs.STEP_DEFAULTS, **args}
     want = rs.phase_consensus_delta_flat_plain(torch.from_numpy(buf), **kw)
     assert (host_kernel.region_step(buf, **kw) == want.numpy()).all()
+
+    # each measurement module's --help
+    import contextlib
+    import io
+    import runpy
+    for name in ("bench", "bench_auto", "bench_scaling", "bench_accuracy",
+                 "bench_accuracy_complex"):
+        sys.argv = [name, "--help"]
+        text = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(text):
+                runpy.run_module(f"focalsv_tpu_torch.benches.{name}",
+                                 run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, (name, e.code)
+        assert "usage: python -m focalsv_tpu_torch.benches." + name in \
+            text.getvalue(), text.getvalue()
     print("BLOCKED", blocked)
     assert not blocked, blocked
     assert sys.modules.get("jax") is None
@@ -275,7 +292,8 @@ def test_no_jax_import_in_port_sources():
 
 
 IMPORT_OF_REFERENCE = re.compile(
-    r"^\s*(from|import)\s+(jax|focalsv_tpu|bench_auto)(\.|\s|$)", re.M)
+    r"^\s*(from|import)\s+(jax|focalsv_tpu|bench|bench_auto|bench_accuracy|"
+    r"bench_accuracy_complex|bench_scaling)(\.|\s|$)", re.M)
 
 
 def test_guard_pattern_sees_an_import_put_back():
@@ -283,17 +301,29 @@ def test_guard_pattern_sees_an_import_put_back():
                  "    import focalsv_tpu.io.bam as bamio",
                  "from focalsv_tpu import native", "import jax",
                  "import focalsv_tpu", "from bench_auto import build_genome",
-                 "    import bench_auto"):
+                 "    import bench_auto", "import bench",
+                 "    import bench as jbench", "from bench import _make_jobs",
+                 "import bench_accuracy",
+                 "from bench_accuracy import make_case",
+                 "    import bench_accuracy_complex",
+                 "from bench_accuracy_complex import _run_type",
+                 "import bench_scaling", "    from bench_scaling import main"):
         assert IMPORT_OF_REFERENCE.search(line), line
     for line in ("from focalsv_tpu_torch.config import preset",
-                 "import focalsv_tpu_torch", "# from focalsv_tpu import x"):
+                 "import focalsv_tpu_torch", "# from focalsv_tpu import x",
+                 "from focalsv_tpu_torch.benches import bench",
+                 "from focalsv_tpu_torch.benches.bench_accuracy import x",
+                 "import benchmark", "import bench_autox"):
         assert not IMPORT_OF_REFERENCE.search(line), line
 
 
 def test_no_import_of_the_jax_package_in_port_sources():
-    """Neither the port's package (its auto-mode genome builder included),
-    nor chip_smoke.py, nor the card tests (which run where there is no jax)
-    import jax, focalsv_tpu or bench_auto.py, which imports the latter."""
+    """Neither the port's package (its auto-mode genome builder and its
+    bench modules included), nor chip_smoke.py, nor the card tests (which
+    run where there is no jax) import jax, focalsv_tpu or one of the
+    repository's measurement scripts (bench.py, bench_auto.py,
+    bench_accuracy.py, bench_accuracy_complex.py, bench_scaling.py), which
+    import the latter."""
     files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "tests" / "test_torch_cuda.py"]
     offenders = []
