@@ -194,9 +194,6 @@ B4_OPS_PER_STEP = 10
 # assignment's and the vote's bit tests), which B3 shares; B2's own bound
 # is benches/bench.py::b2_bound
 B2_OPS_PER_ENTRY = 10
-# card cycles a timed run of queued calls waits behind (some 10 ms, past
-# the host's time to queue 20 calls of a wrapper)
-QUEUE_CYCLES = 20_000_000
 # kernel B3's integer operations per (read, column) cell of a row in each
 # of its two sweeps: the nibble's shift and mask, its symbol's compare and
 # its count's add; MEC entries as B2's
@@ -237,26 +234,17 @@ def sync() -> None:
 
 
 def time_ms(fn, reps: int, queued: bool = False) -> float:
-    """Mean milliseconds of fn() on the card over reps calls (CUDA events).
-    ``queued``: the stream first sleeps (QUEUE_CYCLES) while the host
-    queues the calls, so that the card runs them back to back and the time
-    is the card's alone, not the host's time to issue a call where that is
-    longer."""
+    """Mean milliseconds of fn() on the card over reps calls (CUDA events;
+    benches/bench.py::time_ms).  ``queued``: the calls wait behind a sleep
+    of the stream, so that the time is the card's alone, not the host's
+    time to issue a call where that is longer."""
     if DEVICE.type != "cuda":        # a CPU rehearsal of the script
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t0) * 1e3 / reps
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    if queued:
-        torch.cuda._sleep(QUEUE_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    from focalsv_tpu_torch.benches import bench
+    return bench.time_ms(fn, reps, queued)
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -546,12 +534,9 @@ def region_chunks(jobs, n_devices):
 
 def delta_kwargs(key, G, cfg) -> dict:
     """The region step's arguments for a delta chunk, as dispatch_packed
-    gives them."""
-    from focalsv_tpu_torch.parallel import region_step as rs
-    from focalsv_tpu_torch.pipeline import device_exec as dx
-    _, R, L, Ds, Dd = key
-    return dict(rs.phase_consensus_kwargs(cfg.phasing), G=G, R=R, L=L, Ds=Ds,
-                Dd=Dd, Drle=dx.drle_of(key))
+    gives them (benches/bench.py::delta_kwargs)."""
+    from focalsv_tpu_torch.benches import bench
+    return bench.delta_kwargs(key, G, cfg)
 
 
 def b2_bound(dev_buf, out, kw) -> tuple[float, str]:

@@ -467,7 +467,7 @@ def run(args) -> dict:
         line = {"metric": "baseline_regions_per_sec",
                 "value": _spread(rps)["median"],
                 "unit": "regions/s", "vs_baseline": 1.0,
-                "spread": _spread(rps), "backend": "cpu",
+                "spread": _spread(rps), "backend": device.type,
                 "records": n_records,
                 "records_digest": records_digest(keys)}
         return dict(json=line, jobs=jobs, cfg=cfg, device=device,

@@ -40,6 +40,8 @@ import argparse
 import json
 import sys
 
+from focalsv_tpu_torch.config import preset
+
 ERR_MODELS = {
     "HIFI": dict(sub_rate=0.002, coverage=22),
     "CLR": dict(sub_rate=0.06, ins_rate=0.03, del_rate=0.03, coverage=28),
@@ -170,7 +172,6 @@ def _child_init(dtype: str, pairhmm: bool = False,
                 assembly: str = "guided", post_refine: bool = False):
     import dataclasses
 
-    from focalsv_tpu_torch.config import preset
     cfg = preset(dtype)
     if pairhmm:
         cfg = cfg.replace(phasing=dataclasses.replace(cfg.phasing,
@@ -195,6 +196,20 @@ def run_region(region, cfg, mode: str = "host", device=None):
         return dx.process_region_device(tile, dev_outs.get(0), cfg)
     from focalsv_tpu_torch.pipeline.region import process_region
     return process_region(region.reads, region.ref, 0, region.chrom, cfg)
+
+
+def score_seeds(dtype: str, case: str, seeds, mode: str = "host", cfg=None,
+                device=None) -> tuple[int, int, int]:
+    """(tp, fp, fn) summed over the regions of ``seeds`` of one class, as
+    the accuracy gate counts them (cfg: the dtype's preset by default)."""
+    cfg = cfg or preset(dtype)
+    tp = fp = fn = 0
+    for seed in seeds:
+        region = make_case(seed, case, ERR_MODELS[dtype])
+        b = score(run_region(region, cfg, mode, device).records, region,
+                  dtype)
+        tp, fp, fn = tp + b.tp, fp + b.fp, fn + b.fn
+    return tp, fp, fn
 
 
 def score(records, region, dtype: str):
@@ -237,9 +252,10 @@ def _apply_refine(records, region):
     reference uses to rescue noisy-dtype assembly FPs
     (5_post_processing/GT_impute.py, ONT_var_process.py:34-45)."""
     from focalsv_tpu_torch.refine.driver import refine_records
-    from focalsv_tpu_torch.scan.read_scan import (calls_to_vcf, cluster_signatures,
-                                            normalize_scan_result,
-                                            scan_records)
+    from focalsv_tpu_torch.scan.read_scan import (calls_to_vcf,
+                                                  cluster_signatures,
+                                                  normalize_scan_result,
+                                                  scan_records)
     cfg = _state["cfg"]
     scan = scan_records(iter(region.reads), cfg.read_scan)
     normalize_scan_result(scan, region.ref)

@@ -1,8 +1,9 @@
 """Complex-SV accuracy benchmark: INV / DUP / TRA recall + precision.
 
 The port's counterpart of the repository's bench_accuracy_complex.py, on
-the same trials.  The statistical analog of the reference's HCC1395 somatic TRA/INV/DUP
-evaluation (SURVEY.md section 6; evaluation/Table5 SURVIVOR protocol):
+the same trials.  The statistical analog of the reference's HCC1395
+somatic TRA/INV/DUP evaluation (SURVEY.md section 6; evaluation/Table5
+SURVIVOR protocol):
 randomized trials per SV type, each running the REAL stack -- reads sampled
 from a rearranged donor haplotype, aligned with the framework's
 seed-chain-extend aligner (split/supplementary alignments, the geometry

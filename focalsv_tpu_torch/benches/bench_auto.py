@@ -29,15 +29,6 @@ import tempfile
 import time
 
 
-def scan_parity_check(bam_path, cfg):
-    """fast_scan (native) vs read_scan (Python) signature parity at scale:
-    ((signatures checked, (chromosome, kind) sets that differ), seconds)."""
-    from focalsv_tpu_torch.testing.auto_cases import scan_parity_check
-    t0 = time.perf_counter()
-    p = scan_parity_check(bam_path, cfg)
-    return (p["checked"], len(p["differ"])), time.perf_counter() - t0
-
-
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m focalsv_tpu_torch.benches.bench_auto")
@@ -56,15 +47,17 @@ def parse_args(argv=None):
 
 def run(args, tmp: str) -> dict:
     """Build the genome under tmp, check the scan parity, run auto mode:
-    returns the JSON line's object with the run's regions, calls, truth
-    match, step 0's parts and the seconds of each piece."""
+    returns the device, the run's regions and calls, their match against
+    the truth, step 0's parts, each chromosome's logs and the seconds of
+    each piece."""
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.device import resolve_device
     from focalsv_tpu_torch.evaluation.compare import match_records
     from focalsv_tpu_torch.io.bed import read_bed
     from focalsv_tpu_torch.io.vcf import read_vcf
     from focalsv_tpu_torch.pipeline.main import run_auto_mode
-    from focalsv_tpu_torch.testing.auto_cases import build_genome
+    from focalsv_tpu_torch.testing.auto_cases import (build_genome,
+                                                      scan_parity_check)
 
     device = resolve_device()
     cfg = preset(args.dtype)
@@ -75,11 +68,15 @@ def run(args, tmp: str) -> dict:
     build_s = time.perf_counter() - t0
     genome_bp = args.chroms * args.chrom_len
 
+    # fast_scan (native) vs read_scan (Python) signature parity at scale
     genome_too_big = args.chroms * args.chrom_len > 8_000_000
     if args.no_parity or genome_too_big:
         parity, scan_dt = None, 0.0
     else:
-        parity, scan_dt = scan_parity_check(bam, cfg)
+        t0 = time.perf_counter()
+        p = scan_parity_check(bam, cfg)
+        parity = (p["checked"], len(p["differ"]))
+        scan_dt = time.perf_counter() - t0
 
     out = os.path.join(tmp, "out")
     t0 = time.perf_counter()
