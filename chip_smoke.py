@@ -125,17 +125,23 @@ on the card in phases, and exits non-zero at the first phase that fails:
    warm pass and one timed host pass (the host baseline, a subprocess on
    the CPU) -- the repeats are the one cut (bench: 5 and 3); the device
    records must equal the host records (each region's keys), no tile may
-   fall back to the host and B2 must launch; then B2 at the workload's
-   largest bucket against its plain version byte for byte, timed, with
-   its bound and launch plan.  13b: benches.bench_accuracy_complex at 2
-   trials a type (12 by default), with the native host kernel's cap at 0
+   fall back to the host and B2 must launch; then B2 against its plain
+   version on the card and on the CPU, byte for byte, timed, with its
+   bound and launch plan, at every bucket the device pass dispatched (the
+   jobs tiled again, the first G tiles of each bucket at the run's G, as
+   phase 12 holds auto mode's) and at the workload's largest bucket as the
+   bench measures it (G up to 8).  13b: benches.bench_accuracy_complex at
+   2 trials a type (12 by default), with the native host kernel's cap at 0
    as in phase 8 (at the bench's defaults every DP of the aligner fits
-   under it), so that B1 and B4 must launch.  13c: benches.bench_accuracy
-   at 2 regions a (dtype, case) (20 by default), guided, in this process
-   (--procs 1; 2 by default), each dtype's F1 printed beside PARITY.md's,
-   and the encoding its noisy tiles take.  13d: benches.bench_scaling at
-   1 and 2 shards (two logical shards of the one card): each region's
-   result equal at both, and B2 launched.
+   under it), so that B1 and B4 must launch; then again with the cap as it
+   is (every DP on the host), and each trial's calls, controls included,
+   must equal the card run's.  13c: benches.bench_accuracy at 2 regions a
+   (dtype, case) (20 by default), guided, in this process (--procs 1; 2 by
+   default), each dtype's F1 printed beside PARITY.md's, and the encoding
+   its noisy tiles take.  13d: benches.bench_scaling at 1 and 2 shards
+   (two logical shards of the one card): each region's result equal at
+   both and to the plain version's on the dispatched chunk, B2 held to its
+   plain version on each chunk as in 13a, and B2 launched.
 
 Phase 4 also prints the region step's card time by kernel name for one
 delta and one rows chunk (torch.profiler); each must take at most 5
@@ -180,23 +186,16 @@ OLC_SCORING = dict(match=2, mismatch=-4, gap_open=-4, gap_extend=-2)
 ALIGNER_SCORING = dict(match=2, mismatch=-8, gap_open=-24, gap_extend=-2)
 UNIT_COSTS = dict(match=0, mismatch=-1, gap_open=-1, gap_extend=-1)
 DEVICE = torch.device("cuda")
-# published peaks of one H100 SXM: 3.35 TB/s of HBM3; 67 TFLOP/s of float32
-# outside the tensor cores is 33.5e12 fused multiply-adds a second on 128
-# lanes an SM, and int32 has half those lanes
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+# the card's peak rates (HBM_BYTES_PER_S, INT32_OPS_PER_S) are those of
+# benches/bench.py, which kernel B2's bound counts with
 # integer operations of the recurrence per band cell (substitution, the F,
 # G, E, H maxima and their adds, the prefix max, the direction bits)
 B1_OPS_PER_CELL = 30
 # integer operations per step of a walk (index, load, mask, state, emit)
 B4_OPS_PER_STEP = 10
-# integer operations of kernel B2 a (read, site) entry of a MEC round (the
-# assignment's and the vote's bit tests), which B3 shares; B2's own bound
-# is benches/bench.py::b2_bound
-B2_OPS_PER_ENTRY = 10
 # kernel B3's integer operations per (read, column) cell of a row in each
 # of its two sweeps: the nibble's shift and mask, its symbol's compare and
-# its count's add; MEC entries as B2's
+# its count's add; MEC entries as B2's (benches/bench.py::B2_OPS_PER_ENTRY)
 B3_OPS_PER_CELL = 4
 NOISE = {"HIFI": {},
          "CLR": dict(sub_rate=0.04, ins_rate=0.04, del_rate=0.02)}
@@ -231,20 +230,6 @@ def log(msg: str) -> None:
 def sync() -> None:
     if DEVICE.type == "cuda":        # not in a CPU rehearsal of the script
         torch.cuda.synchronize()
-
-
-def time_ms(fn, reps: int, queued: bool = False) -> float:
-    """Mean milliseconds of fn() on the card over reps calls (CUDA events;
-    benches/bench.py::time_ms).  ``queued``: the calls wait behind a sleep
-    of the stream, so that the time is the card's alone, not the host's
-    time to issue a call where that is longer."""
-    if DEVICE.type != "cuda":        # a CPU rehearsal of the script
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
-    from focalsv_tpu_torch.benches import bench
-    return bench.time_ms(fn, reps, queued)
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -316,6 +301,8 @@ def kernel_parity(rng, cases):
     """B1 against the plain version on the card, and B4 on B1's direction
     bytes against its plain version and the host traceback; returns the
     rows of both kernels."""
+    from focalsv_tpu_torch.benches.bench import (HBM_BYTES_PER_S,
+                                                 INT32_OPS_PER_S, time_ms)
     from focalsv_tpu_torch.ops import align as talign
     from focalsv_tpu_torch.ops import align_cuda
     from focalsv_tpu_torch.testing.dp_cases import dp_pairs, noisy_pairs
@@ -378,6 +365,8 @@ def traceback_parity(name, dirs, scores, q_len, t_len, d_lo, W, Lq, n_plain):
     """B4 on one case's direction bytes: against its plain version on the
     first n_plain pairs (they hold the edge pairs) and against the host
     traceback's CIGAR on the pairs among them that scored."""
+    from focalsv_tpu_torch.benches.bench import (HBM_BYTES_PER_S,
+                                                 INT32_OPS_PER_S, time_ms)
     from focalsv_tpu_torch.ops import align as talign
     from focalsv_tpu_torch.ops import align_cuda
     from focalsv_tpu_torch.testing.dp_cases import walk_decisions
@@ -532,21 +521,6 @@ def region_chunks(jobs, n_devices):
                                                         key, G)
 
 
-def delta_kwargs(key, G, cfg) -> dict:
-    """The region step's arguments for a delta chunk, as dispatch_packed
-    gives them (benches/bench.py::delta_kwargs)."""
-    from focalsv_tpu_torch.benches import bench
-    return bench.delta_kwargs(key, G, cfg)
-
-
-def b2_bound(dev_buf, out, kw) -> tuple[float, str]:
-    """B2's least time on the card for one chunk, as the port's bench
-    module counts it (benches/bench.py::b2_bound): its bytes over the
-    memory rate against the integer operations this run's data needs."""
-    from focalsv_tpu_torch.benches.bench import b2_bound as bound
-    return bound(dev_buf, out, kw)
-
-
 def rows_cells(buf: np.ndarray, kw) -> int:
     """The (read, column) cells of a dense chunk that its sweeps must
     decode and count: each valid read's row columns that fall in [0, L)."""
@@ -590,6 +564,9 @@ def b3_bound(buf, dev_buf, out, kw) -> tuple[float, str]:
     in each of the two sweeps (rows_cells counts this run's cells), and
     B2_OPS_PER_ENTRY a (read, site) entry of each MEC round the data needs
     (the fewest that give the same bytes) and of the final assignment."""
+    from focalsv_tpu_torch.benches.bench import (B2_OPS_PER_ENTRY,
+                                                 HBM_BYTES_PER_S,
+                                                 INT32_OPS_PER_S)
     from focalsv_tpu_torch.parallel import region_step as rs
     n_sites = out[:, :4].contiguous().view(torch.int32).reshape(-1).long()
     rounds = kw["mec_iters"]
@@ -619,6 +596,7 @@ def region_step_parity(jobs):
     production chunk sizes; at every delta chunk also kernel B2 against its
     plain version on the card, at every dense chunk B3, timed in turns.
     Returns B2's rows and B3's."""
+    from focalsv_tpu_torch.benches.bench import delta_kwargs, time_ms
     from focalsv_tpu_torch.ops import region_cuda
     from focalsv_tpu_torch.parallel import region_step as rs
     from focalsv_tpu_torch.pipeline import device_exec as dx
@@ -677,6 +655,7 @@ def dispatch_split(buf, key, G, cfg) -> dict:
     pinning the host buffer (host clock), the copy in, the kernel and the
     copy out (CUDA events), and the whole until the result is on the host
     (host clock)."""
+    from focalsv_tpu_torch.benches.bench import delta_kwargs
     from focalsv_tpu_torch.parallel import region_step as rs
     kw = delta_kwargs(key, G, cfg)
     if DEVICE.type != "cuda":            # a CPU rehearsal of the script
@@ -710,6 +689,7 @@ def against_plain(case, buf, kw, cpu_out=None) -> dict:
     plain, kernel, each call issued as the last one returns), the kernel's
     ms with its calls queued behind a sleep of the stream (queued_ms: the
     card's time alone), its bound and its launch plan."""
+    from focalsv_tpu_torch.benches.bench import b2_bound, time_ms
     from focalsv_tpu_torch.parallel import region_step as rs
     kw = {**rs.STEP_DEFAULTS, **kw}
     dense = "W" in kw
@@ -1328,6 +1308,7 @@ def b6_bound(case) -> tuple[float, str]:
     emissions and lengths, each window and length, each result) over the
     memory rate against the cells the data needs times B6_OPS_PER_CELL over
     the FP32 instruction rate."""
+    from focalsv_tpu_torch.benches.bench import HBM_BYTES_PER_S
     M = case["max_read"]
     B = len(case["read_lens"])
     rl = np.clip(case["read_lens"].astype(np.int64), 0, M)
@@ -1401,6 +1382,7 @@ def b6_against_plain(name: str, case: dict, timed: bool) -> dict:
     numpy inputs (b6_entry: copy in, B6, copy out), from the wrappers'
     counts (must be 3) and from torch.profiler (may lose or cut the
     record), and of the plain version's call (torch.profiler)."""
+    from focalsv_tpu_torch.benches.bench import time_ms
     from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
     from focalsv_tpu_torch.testing import pairhmm_cases
     before = pairhmm_cuda.launches
@@ -1679,6 +1661,7 @@ def b6_on_path_traffic(traffic: list) -> tuple[list[dict], dict]:
     hold to 3.  The region of median windows is also timed as 9a times its
     shapes, and B6's lane-steps counted there: the kernels line's headline.
     Returns its row and a summary of the run's calls."""
+    from focalsv_tpu_torch.benches.bench import time_ms
     from focalsv_tpu_torch.ops import pairhmm, pairhmm_cuda
     from focalsv_tpu_torch.testing import pairhmm_cases
     sizes = [len(c["read_lens"]) for c in traffic]
@@ -2349,16 +2332,47 @@ def auto_report(g: dict, run: dict) -> None:
 
 def chunk_kwargs(key, G, cfg) -> dict:
     """The region step's arguments for a chunk of bucket key."""
+    from focalsv_tpu_torch.benches.bench import delta_kwargs
     return (delta_kwargs(key, G, cfg) if key[0] == "delta"
             else rows_kwargs(key, G, cfg))
 
 
+def dispatched_chunks(tag: str, tiles: list, cfg, buckets: dict,
+                      n_host: int) -> list[tuple]:
+    """One packed chunk for each bucket that a device run dispatched
+    (``buckets``: its stats' buckets by name, each with its key, G and
+    regions), from the run's regions tiled again as the run tiled them,
+    which must give the run's buckets region for region and its n_host
+    tiles for the host: the first G tiles of each bucket, padded as the run
+    pads a tail.  Returns (case, buffer, kwargs) for against_plain."""
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    by_key: dict = {}
+    for i, t in enumerate(tiles):
+        by_key.setdefault(dx._bucket_key(t, cfg), []).append(i)
+    got = {k: len(v) for k, v in by_key.items() if k is not None}
+    want = {tuple(b["key"]): b["regions"] for b in buckets.values()}
+    if got != want or len(by_key.get(None, [])) != n_host:
+        raise AssertionError(f"{tag}: the regions tiled again give buckets "
+                             f"{got}, the run dispatched {want}")
+    out = []
+    for b in sorted(buckets.values(),
+                    key=lambda b: (b["key"][0], b["key"][2], b["key"])):
+        key, G = tuple(b["key"]), b["G"]
+        idxs = by_key[key][:G]
+        chunk = idxs + [len(tiles)] * (G - len(idxs))
+        out.append((f"{tag} {key} real={len(idxs)}",
+                    dx.pack_chunk(tiles + [None], chunk, key, G),
+                    chunk_kwargs(key, G, cfg)))
+    log(f"[chunks] {tag}: the run's regions tiled again give its "
+        f"{len(want)} buckets, each held to the plain version at the run's "
+        f"G")
+    return out
+
+
 def auto_chunks(g: dict, run: dict) -> list[tuple]:
-    """One packed chunk for each bucket that a device run dispatched, as
-    its device_stats.json files name them: the run's regions tiled again as
-    target mode tiles them (which must give the run's buckets, region for
-    region), then the first G tiles of each bucket, padded as the run pads
-    a tail.  Returns (case, buffer, kwargs) for against_plain."""
+    """dispatched_chunks of an auto run, its buckets as its
+    device_stats.json files name them, its regions tiled as target mode
+    tiles them."""
     from concurrent.futures import ThreadPoolExecutor
 
     from focalsv_tpu_torch.config import preset
@@ -2376,27 +2390,27 @@ def auto_chunks(g: dict, run: dict) -> list[tuple]:
 
     with ThreadPoolExecutor(max_workers=8) as ex:
         tiles = list(ex.map(tile, run["regions"]))
-    by_key: dict = {}
-    for i, t in enumerate(tiles):
-        by_key.setdefault(dx._bucket_key(t, cfg), []).append(i)
-    got = {k: len(v) for k, v in by_key.items() if k is not None}
-    want = {b["key"]: b["regions"] for b in run["buckets"].values()}
-    if got != want or len(by_key.get(None, [])) != run["tiles"].get(
-            "host", 0):
-        raise AssertionError(f"{g['dtype']}: the regions tiled again give "
-                             f"buckets {got}, the run dispatched {want}")
-    out = []
-    for b in sorted(run["buckets"].values(),
-                    key=lambda b: (b["key"][0], b["key"][2], b["key"])):
-        key, G = b["key"], b["G"]
-        idxs = by_key[key][:G]
-        chunk = idxs + [len(tiles)] * (G - len(idxs))
-        out.append((f"auto {g['dtype']} {key} real={len(idxs)}",
-                    dx.pack_chunk(tiles + [None], chunk, key, G),
-                    chunk_kwargs(key, G, cfg)))
-    log(f"[auto] {g['dtype']}: the run's regions tiled again give its "
-        f"{len(want)} buckets, each held to the plain version")
-    return out
+    return dispatched_chunks(f"auto {g['dtype']}", tiles, cfg,
+                             run["buckets"], run["tiles"].get("host", 0))
+
+
+def bench_chunks(res: dict) -> list[tuple]:
+    """dispatched_chunks of a device run of benches.bench (its reported
+    pass's buckets), its jobs tiled as the bench tiles them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from focalsv_tpu_torch.benches import bench
+    from focalsv_tpu_torch.pipeline import device_exec as dx
+    cfg, st = res["cfg"], res["stats"]
+
+    def tile(job):
+        reads, ref, chrom = bench._load_job(job)
+        return dx.build_tile(reads, ref, 0, chrom, cfg)
+
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        tiles = list(ex.map(tile, res["jobs"]))
+    return dispatched_chunks("bench", tiles, cfg, st["buckets"],
+                             st.get("tiles_by_encoding", {}).get("host", 0))
 
 
 def auto_mode(work: str, smi: str) -> dict:
@@ -2476,17 +2490,22 @@ def bench_launches(path: str, before: dict) -> dict:
 def bench_modules(work: str, smi: str) -> dict:
     """Phase 13: the port's measurement modules (focalsv_tpu_torch/benches)
     on the card.  13a bench at 256 regions, threads (--mp 0), one timed
-    device and one timed host pass; 13b bench_accuracy_complex, 2 trials a
-    type, every DP of the aligner on the card; 13c bench_accuracy, 2 regions
-    a (dtype, case), guided, one process; 13d bench_scaling at 1 and 2
-    shards.  Returns the kernels' launches by path and B2's row at bench's
-    largest bucket."""
+    device and one timed host pass, then B2 against its plain version at
+    every bucket the device pass dispatched (a chunk of each at the run's
+    G) and at the largest bucket as the bench measures it; 13b
+    bench_accuracy_complex, 2 trials a type, every DP of the aligner on the
+    card, each trial's calls equal to a run with the host's DP; 13c
+    bench_accuracy, 2 regions a (dtype, case), guided, one process; 13d
+    bench_scaling at 1 and 2 shards, each dispatch's results equal to the
+    plain version's on its chunk.  Returns the kernels' launches by path
+    and B2's rows."""
     from focalsv_tpu_torch.benches import (bench, bench_accuracy,
                                            bench_accuracy_complex,
                                            bench_scaling)
     from focalsv_tpu_torch.benches.bench_accuracy import launch_counts
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.ops import align as talign
+    from focalsv_tpu_torch.parallel import region_step as rs
     from focalsv_tpu_torch.pipeline import device_exec as dx
     t_phase = time.perf_counter()
     log(f"[bench] card: {smi}")
@@ -2517,23 +2536,29 @@ def bench_modules(work: str, smi: str) -> dict:
         line["records_equal"] and line["records"] > 0)
     checks["bench n_host_fallback == 0"] = line["n_host_fallback"] == 0
     checks["B2 launched on bench_256"] = launches["bench_256"]["B2"] > 0
-    b2 = [dict(case=f"bench {tuple(ks['shape'])} G={ks['G']}",
+    b2 = [dict(case=f"bench largest {tuple(ks['shape'])} G={ks['G']}",
                L=ks["shape"][2], max_abs_err=ks["max_abs_err"], ms=ks["ms"],
                queued_ms=ks["queued_ms"], plain_ms=ks["plain_ms"],
                bound_ms=ks["bound_ms"], bound_by=ks["bound_by"],
                **(ks["plan"] or {}))]
+    for case, buf, kw in bench_chunks(res):
+        # raises where the kernel differs from its plain version
+        b2.append(against_plain(case, buf, kw))
 
     # 13b: the complex-SV trials through the port's aligner; its DPs fit the
     # native host kernel's cap at the bench's defaults, so the cap goes to
-    # 0 as in phase 8, and every DP of the aligner runs B1 and B4
+    # 0 as in phase 8, and every DP of the aligner runs B1 and B4; then the
+    # same trials with the cap as it is (every DP on the host), whose calls
+    # the card's must equal, trial for trial
+    trials: dict = {"card": [], "host": []}
     cap = talign.NATIVE_DP_MAX_CELLS
     talign.NATIVE_DP_MAX_CELLS = 0
     before = launch_counts()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(sys.stdout):
-            rows = bench_accuracy_complex.main(["--trials",
-                                                str(COMPLEX_TRIALS)])
+            rows = bench_accuracy_complex.main(
+                ["--trials", str(COMPLEX_TRIALS)], trials=trials["card"])
     finally:
         talign.NATIVE_DP_MAX_CELLS = cap
     launches["bench_accuracy_complex"] = bench_launches(
@@ -2541,9 +2566,21 @@ def bench_modules(work: str, smi: str) -> dict:
     log(f"[bench] bench_accuracy_complex, {COMPLEX_TRIALS} trials a type, "
         f"every DP on the card, in {time.perf_counter() - t0:.1f} s: " +
         ", ".join(f"{r['metric']} {r['value']}" for r in rows))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(sys.stdout):
+        host_rows = bench_accuracy_complex.main(
+            ["--trials", str(COMPLEX_TRIALS)], trials=trials["host"])
+    same = [a == b for a, b in zip(trials["card"], trials["host"])]
+    log(f"[bench] bench_accuracy_complex again, every DP on the host, in "
+        f"{time.perf_counter() - t0:.1f} s: {sum(same)} of "
+        f"{len(trials['host'])} trials (controls included) give the card "
+        f"run's calls; rows equal: {rows == host_rows}")
     for k in ("B1", "B4"):
         checks[f"{k} launched on bench_accuracy_complex"] = (
             launches["bench_accuracy_complex"][k] > 0)
+    checks["bench_accuracy_complex calls on the card == on the host"] = (
+        trials["card"] == trials["host"] and len(trials["card"]) > 0
+        and rows == host_rows)
 
     # 13c: the accuracy matrix, guided, in this process
     before = launch_counts()
@@ -2575,16 +2612,27 @@ def bench_modules(work: str, smi: str) -> dict:
     log(f"[bench] bench_accuracy's noisy tiles by encoding (seed 4000, "
         f"every class): {json.dumps(enc)}")
 
-    # 13d: the sharded region step at 1 and 2 shards
+    # 13d: the sharded region step at 1 and 2 shards; each dispatch's
+    # results against the plain version on its chunk (on the CPU), and B2
+    # against the plain version on that chunk as against_plain holds it
     before = launch_counts()
     tempdir = tempfile.tempdir
     tempfile.tempdir = work              # the sweep's jobs
     try:
-        doc, _ = bench_scaling.sweep(bench_scaling.parse_args(
+        doc, outputs = bench_scaling.sweep(bench_scaling.parse_args(
             ["--devices", "1", "2"]))
     finally:
         tempfile.tempdir = tempdir
     launches["bench_scaling"] = bench_launches("bench_scaling", before)
+    key = tuple(doc["bucket"])
+    for n, (buf, got) in outputs.items():
+        kw = chunk_kwargs(key, len(got), preset("HIFI"))
+        want = rs.phase_consensus_delta_flat_plain(torch.from_numpy(buf),
+                                                   **kw).numpy()
+        checks[f"bench_scaling n={n}: results == the plain version's"] = (
+            np.array_equal(got, want))
+        b2.append(against_plain(f"bench_scaling n={n} {key} G={len(got)}",
+                                buf, kw, want))
     for r in doc["rows"]:
         log(f"[bench] bench_scaling n={r['n_devices']} {r['shards']}: "
             f"{r['regions_per_dispatch']} regions, wall "

@@ -111,15 +111,17 @@ def run_device_mode_mp(jobs, cfg, n_children: int, repeats: int = 5,
     (pipeline/mp_exec.py): worker processes build tiles and finish regions
     GIL-free; the parent owns the card, and no child may initialise CUDA.
 
-    Returns (every timed pass's seconds in run order, n_records, stats of
-    the median pass)."""
+    The untimed first pass, which loads and warms every bucket, ships each
+    region's records back; the timed passes ship counts.  Returns (every
+    timed pass's seconds in run order, n_records, stats of the median pass,
+    record keys of the first pass)."""
     from focalsv_tpu_torch.pipeline.mp_exec import MpRegionExecutor
 
     passes = []
     with MpRegionExecutor(cfg, n_children=n_children, device=device,
                           mesh=mesh) as ex:
         t0 = time.perf_counter()
-        ex.run(jobs, collect="count")      # loads and warms every bucket
+        keys = record_keys(r for _, r in ex.run(jobs, collect="records"))
         cold_s = time.perf_counter() - t0
         for _ in range(repeats):
             stats = {}
@@ -135,7 +137,7 @@ def run_device_mode_mp(jobs, cfg, n_children: int, repeats: int = 5,
     passes.sort(key=lambda p: p[0])
     med = passes[len(passes) // 2]
     med[2]["cold_s"] = cold_s
-    return pass_s, med[1], med[2]
+    return pass_s, med[1], med[2], keys
 
 
 def run_device_mode(jobs, cfg, workers: int, repeats: int = 2, mesh=None,
@@ -443,8 +445,9 @@ def run(args) -> dict:
     """Everything bench.py times, on the device the port resolves: the
     jobs, the host baseline (a subprocess), then the device passes.
     Returns {"json": the JSON line's object, "jobs", "cfg", "device",
-    "stats" of the reported pass, "pass_s", "keys" (the device records,
-    --mp 0 only), "baseline": the host line}."""
+    "stats" of the reported pass, "pass_s", "keys" (the device records: of
+    the reported pass, or with --mp N of the untimed first pass),
+    "baseline": the host line}."""
     from focalsv_tpu_torch.config import preset
     from focalsv_tpu_torch.device import resolve_device
 
@@ -494,13 +497,14 @@ def run(args) -> dict:
             sys.exit(2)
         mesh = make_mesh(n_chips)
 
-    keys = None
     if args.mp:
-        pass_s, n_records, st = run_device_mode_mp(
+        pass_s, n_records, st, keys = run_device_mode_mp(
             jobs, cfg, args.mp, repeats=args.repeats, mesh=mesh,
             device=device)
         rps_passes = [args.regions / t for t in pass_s]
-        records_equal = n_records == base["records"]
+        # the timed passes count the first pass's records
+        records_equal = (records_digest(keys) == base["records_digest"]
+                         and n_records == sum(map(len, keys)))
     else:
         pass_s, n_records, st, keys = run_device_mode(
             jobs, cfg, args.workers, repeats=args.repeats, mesh=mesh,

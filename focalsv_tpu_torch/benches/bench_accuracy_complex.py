@@ -180,12 +180,16 @@ def _tra_trial(rng, sv: bool):
     return truth, calls
 
 
-def _run_type(name, trial_fn, n_trials, tol, seed0):
+def _run_type(name, trial_fn, n_trials, tol, seed0, trials=None):
+    """The type's row over n_trials trials and their SV-free controls.
+    ``trials``: a list that gets each trial's (type, seed, truth, calls)."""
     import numpy as np
     tp = fn = fp = 0
     for t in range(n_trials):
         rng = np.random.default_rng(seed0 + t)
         truth, calls = trial_fn(rng, sv=True)
+        if trials is not None:
+            trials.append((name, seed0 + t, truth, calls))
         hit = any(abs(c[0] - truth[0]) <= tol and abs(c[1] - truth[1]) <= tol
                   for c in calls)
         tp += int(hit)
@@ -196,6 +200,8 @@ def _run_type(name, trial_fn, n_trials, tol, seed0):
     for t in range(max(n_trials // 2, 1)):   # SV-free controls
         rng = np.random.default_rng(seed0 + 10_000 + t)
         _, calls = trial_fn(rng, sv=False)
+        if trials is not None:
+            trials.append((name, seed0 + 10_000 + t, None, calls))
         fp += len(calls)
     recall = tp / max(tp + fn, 1)
     precision = tp / max(tp + fp, 1)
@@ -215,8 +221,9 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> list[dict]:
-    """Prints and returns the rows: one a type, then the combined line."""
+def main(argv=None, trials=None) -> list[dict]:
+    """Prints and returns the rows: one a type, then the combined line.
+    ``trials``: a list that gets every trial's (type, seed, truth, calls)."""
     from focalsv_tpu_torch.device import resolve_device
     from focalsv_tpu_torch.ops import align_cuda
     args = parse_args(argv)
@@ -229,7 +236,7 @@ def main(argv=None) -> list[dict]:
     rows = []
     for i, name in enumerate(args.types.split(",")):
         row = _run_type(name, fns[name], args.trials, args.tol,
-                        seed0=37_000 + 1_000 * i)
+                        seed0=37_000 + 1_000 * i, trials=trials)
         rows.append(row)
         print(json.dumps(row))
         sys.stdout.flush()

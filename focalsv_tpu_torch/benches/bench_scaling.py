@@ -70,8 +70,8 @@ def parse_args(argv=None):
 
 
 def sweep(args) -> tuple[dict, dict]:
-    """The sweep: (the JSON document, {n: each region's result bytes at n
-    shards, a (G, bytes) uint8 array})."""
+    """The sweep: (the JSON document, {n: (the packed chunk dispatched at n
+    shards, each region's result bytes there, a (G, bytes) uint8 array)})."""
     import numpy as np
     import torch
 
@@ -119,7 +119,8 @@ def sweep(args) -> tuple[dict, dict]:
             return np.asarray(dx.dispatch_packed(buf, key, G, cfg,
                                                  mesh.devices[0], mesh))
 
-        out = outputs[n] = dispatch()    # loads the kernel, warms pools
+        out = dispatch()                 # loads the kernel, warms pools
+        outputs[n] = (buf, out)
         for g in range(G):
             one_shard.setdefault(g % len(tiles), out[g])
         same = all(np.array_equal(out[g], one_shard[g % len(tiles)])

@@ -3,11 +3,14 @@ repository's scripts on the same inputs, on the CPU: the same counts and
 records, tolerance 0.
 
 - bench: _make_jobs writes the same bytes; on 4 regions of 15 kb the port's
-  host pass counts bench.run_host_mode's records, its device pass (the
-  plain versions on the CPU) gives its host pass's records, and its JSON
-  line has bench.py's keys.
+  host pass gives the records of bench.run_host_mode's regions, region for
+  region, its device pass (the plain versions on the CPU) gives its host
+  pass's records, and its JSON line has bench.py's keys; under worker
+  processes (--mp) its records equal the host baseline's, region for
+  region.
 - bench_accuracy: make_case gives the script's reads, reference and truth
-  for every class; the (dtype, case) rows equal the script's.
+  for every class; the (dtype, case) rows equal the script's, seed for
+  seed.
 - bench_accuracy_complex: each type's row equals the script's.
 - bench_auto: the same regions and records as bench_auto.py's calls.
 - bench_scaling: the same region-step results at 1 and 2 logical shards as
@@ -34,6 +37,7 @@ from focalsv_tpu.io.bed import read_bed as jread_bed
 from focalsv_tpu.io.vcf import read_vcf as jread_vcf
 from focalsv_tpu.parallel import mesh as jmesh
 from focalsv_tpu.parallel import region_step as jrs
+from focalsv_tpu.pipeline import region as jregion
 from focalsv_tpu.pipeline import device_exec as jdx
 from focalsv_tpu.pipeline.main import run_auto_mode as jrun_auto_mode
 from focalsv_tpu_torch.benches import (bench, bench_accuracy,
@@ -84,14 +88,28 @@ def test_bench_jobs_are_the_scripts_bytes(tmp_path):
         assert np.array_equal(np.load(ref), np.load(jref))
 
 
-def test_bench_passes_match_the_script(jobs):
-    """Host pass: bench.run_host_mode's record count; device pass (plain
-    versions on the CPU): the host pass's records, region for region."""
+def test_bench_passes_match_the_script(jobs, monkeypatch):
+    """Host pass: the records of bench.run_host_mode's regions (the JAX
+    package's process_region, each call's records kept by its reference
+    window), region for region, and its count; device pass (plain versions
+    on the CPU): the host pass's records, region for region."""
     mine, theirs = jobs
+    seen = {}
+    process_region = jregion.process_region
+
+    def keep(reads, ref, *args, **kw):
+        res = process_region(reads, ref, *args, **kw)
+        seen[ref.tobytes()] = [(r.pos, r.ref, r.alt, r.gt)
+                               for r in res.records]
+        return res
+
+    monkeypatch.setattr(jregion, "process_region", keep)
     _t, n_jax = jbench.run_host_mode(theirs, jpreset("HIFI"), 2, repeats=1)
+    jax_keys = [seen[np.load(ref).tobytes()] for _bam, ref, _c in theirs]
     _t, n_host, host_keys = bench.run_host_mode(
         mine, preset("HIFI"), 2, repeats=1)
     assert n_host == n_jax > 0
+    assert host_keys == jax_keys
     pass_s, n_dev, stats, dev_keys = bench.run_device_mode(
         mine, preset("HIFI"), 2, repeats=1)
     assert len(pass_s) == 1 and n_dev == n_host
@@ -99,16 +117,19 @@ def test_bench_passes_match_the_script(jobs):
     assert stats["n_host_fallback"] == 0 and stats["n_chunks"] > 0
 
 
-def test_bench_json_line_has_the_scripts_keys(jobs, tmp_path):
+def _bench_args(jobs, mp: int) -> list[str]:
+    return ["--regions", "4", "--ref-len", "15000", "--mp", str(mp),
+            "--repeats", "1", "--base-repeats", "1", "--workers", "2",
+            "--jobs-dir", os.path.dirname(jobs[0][0][0])]
+
+
+def test_bench_json_line_has_the_scripts_keys(jobs):
     """main() end to end on the CPU, the host baseline in its subprocess:
     one JSON line with bench.py's keys, device records equal to the host's,
     and the kernel's chunk reported as not measured (no card)."""
-    jobs_dir = os.path.dirname(jobs[0][0][0])
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = bench.main(["--regions", "4", "--ref-len", "15000", "--mp", "0",
-                         "--repeats", "1", "--base-repeats", "1",
-                         "--workers", "2", "--jobs-dir", jobs_dir])
+        rc = bench.main(_bench_args(jobs, 0))
     assert rc == 0, err.getvalue()
     lines = out.getvalue().splitlines()
     assert len(lines) == 1
@@ -119,6 +140,22 @@ def test_bench_json_line_has_the_scripts_keys(jobs, tmp_path):
     assert line["records"] == line["baseline_records"] > 0
     assert "# kernel B2 at bucket" in err.getvalue()
     assert "not measured (no card)" in err.getvalue()
+
+
+def test_bench_mp_records_are_the_hosts(jobs):
+    """--mp 2 (two worker processes): records_equal holds each region's
+    device records, from the untimed first pass, to the host baseline's,
+    not only their count."""
+    with contextlib.redirect_stderr(io.StringIO()):
+        res = bench.run(bench.parse_args(_bench_args(jobs, 2)))
+    line = res["json"]
+    assert line["records_equal"]
+    assert len(res["keys"]) == 4
+    assert bench.records_digest(res["keys"]) == \
+        res["baseline"]["records_digest"]
+    assert line["records"] == sum(map(len, res["keys"])) == \
+        line["baseline_records"] > 0
+    assert res["stats"]["cuda_initialized"] == 0
 
 
 @pytest.mark.parametrize("case", jacc.CASES)
@@ -139,8 +176,18 @@ def test_make_case_is_the_scripts(case):
 
 @pytest.mark.parametrize("dtype,case", [("HIFI", "basic"),
                                         ("CLR", "dropout")])
-def test_accuracy_rows_are_the_scripts(dtype, case, capsys):
-    """The (dtype, case) row at 2 regions, one process."""
+def test_accuracy_rows_are_the_scripts(dtype, case, capsys, monkeypatch):
+    """The (dtype, case) row at 2 regions, one process: each seed's (tp,
+    fp, fn, GT correct, GT total) equal to the script's, and their sums."""
+    mine = {}
+    child_run = bench_accuracy._child_run
+
+    def keep(args):
+        out = child_run(args)
+        mine[args[0]] = out[:5]
+        return out
+
+    monkeypatch.setattr(bench_accuracy, "_child_run", keep)
     rows = bench_accuracy.main(["--regions", "2", "--dtypes", dtype,
                                 "--cases", case, "--procs", "1"])
     theirs = []
@@ -149,6 +196,8 @@ def test_accuracy_rows_are_the_scripts(dtype, case, capsys):
         jacc._state.update(cfg=jpreset(dtype), dtype=dtype,
                            post_refine=False)
         theirs.append(jacc._child_run((seed, case, jacc.ERR_MODELS[dtype])))
+    assert mine == {seed: tuple(r[:5])
+                    for seed, r in zip((4000, 4097), theirs)}
     tp, fp, fn, gt_c, gt_t = (sum(r[i] for r in theirs) for i in range(5))
     assert tp + fn > 0
     for row in rows:
@@ -242,7 +291,8 @@ def test_scaling_results_are_the_scripts(tmp_path, monkeypatch):
             want = jrs.sharded_phase_consensus_delta_flat(
                 buf, jmesh.make_mesh(2), G=G, R=Rp, L=Lp, Ds=Ds, Dd=Dd,
                 **kw)
-        assert np.array_equal(outputs[n], np.asarray(want)), n
+        assert np.array_equal(outputs[n][0], buf), n
+        assert np.array_equal(outputs[n][1], np.asarray(want)), n
     assert bench_scaling.main(["--devices", "1", "--per-device", "1",
                                "--repeats", "1", "--out", str(out)]) == 0
     assert json.loads(out.read_text())["rows"][0]["records_equal"]
