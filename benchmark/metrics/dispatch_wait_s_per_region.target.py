@@ -1,0 +1,11 @@
+"""The batch barrier: ``dispatch_wait`` of device_exec.streamed_map, from
+a region's tile built to its chunk leaving the bucket, seconds, from the
+chromosomes' stage_times.json of the passes run without the tracer, a
+region.  None where the program records no such wait."""
+
+
+def read(run):
+    ps = run.host_passes
+    s = run.stage_sum(("dispatch_wait",), top_level=False, passes=ps)
+    n = run.regions_in(ps)
+    return s / n if n and s > 0 else None

@@ -893,7 +893,7 @@ def run_mode(bam, fa, bed, out, method, mode, n, mesh=None, dtype="HIFI",
     stats["stages"] = stages
     if mode == "device":
         stages.update({k: round(stats[k], 3) for k in (
-            "tile_build_s", "device_wait_s", "finish_s", "device_busy_s")})
+            "tile_build_s", "finish_s", "device_s")})
     log(f"[slice] {dtype} {method} {mode} stage seconds: "
         f"{json.dumps(stages)}")
     n_rec = sum(1 for line in vcf.splitlines() if not line.startswith("#"))
@@ -956,7 +956,7 @@ def slice_run(regions, work: str):
                                  ("olc", n_olc, o_stats, oh_stats)):
         log(f"[slice] {method}: device {n / dev['wall_s']:.3f} regions/s "
             f"tile_build_s={dev['tile_build_s']:.3f} "
-            f"device_busy_s={dev['device_busy_s']:.3f}; host "
+            f"device_s={dev['device_s']:.4f}; host "
             f"{n / host['wall_s']:.3f} regions/s regions_host_s="
             f"{host['stages'].get('regions_host', 0.0):.3f}")
     # the BAM fetch of the 32 regions, one thread: the scan from the first
@@ -1052,9 +1052,9 @@ def noisy_slice(work: str) -> tuple[list[dict], dict]:
     log(f"[noisy] device (card) {n / dev_stats['wall_s']:.3f} regions/s, "
         f"tile_build_s={dev_stats['tile_build_s']:.3f} "
         f"finish_s={dev_stats['finish_s']:.3f} "
-        f"device_busy_s={dev_stats['device_busy_s']:.3f}; host "
+        f"device_s={dev_stats['device_s']:.4f}; host "
         f"{n / host_stats['wall_s']:.3f} regions/s; device on the CPU "
-        f"(plain version): device_busy_s={cpu_stats['device_busy_s']:.3f}; "
+        f"(plain version): finish_s={cpu_stats['finish_s']:.3f}; "
         f"launches B3 {b3}, B2 {B2_LAUNCHES['noisy_target_mode']}")
     host_same = dev == host
     log(f"[noisy] host VCF == device VCF: {host_same} ({host_rec} host "
@@ -1157,7 +1157,7 @@ def mp_executor(regions, work: str, threaded_rps: float) -> None:
                 f"children_with_cuda={stats['cuda_initialized']} "
                 f"tile_build_s={stats['tile_build_s']:.2f} "
                 f"finish_s={stats['finish_s']:.2f} "
-                f"device_busy_s={stats['device_busy_s']:.2f}")
+                f"device_s={stats['device_s']:.4f}")
             if got != want:
                 raise AssertionError("the multi-process executor's records "
                                      "differ from the in-process path")
@@ -2301,8 +2301,8 @@ def auto_report(g: dict, run: dict) -> None:
                f"n_host_fallback={st['n_host_fallback']} "
                f"h2d_bytes={int(st['h2d_bytes'])} "
                f"d2h_bytes={int(st['d2h_bytes'])} "
-               f"device_busy_s={st['device_busy_s']:.3f} (the dispatch "
-               f"window, host clock) "
+               f"device_s={st['device_s']:.4f} (the chunks' span on the "
+               f"stream, CUDA events) "
                f"tile_build_s={st['tile_build_s']:.3f} "
                f"finish_s={st['finish_s']:.3f} "
                f"dp_jobs={st.get('dp_jobs', 0)}" if st else "")

@@ -157,6 +157,8 @@ def run_device_mode(jobs, cfg, workers: int, repeats: int = 2, mesh=None,
     def one_pass(stats=None):
         import contextlib
 
+        from focalsv_tpu_torch.utils.profiling import StageTimer
+
         # the production streaming pipeline: tile builds, device dispatches,
         # decodes and per-region finishes all overlap
         def mk_job(j):
@@ -170,10 +172,14 @@ def run_device_mode(jobs, cfg, workers: int, repeats: int = 2, mesh=None,
         if _dp_batching_enabled(cfg, dev):
             from focalsv_tpu_torch.parallel.batch_executor import dp_batching
             ctx = dp_batching(device=dev)
+        timer = StageTimer()
         with ctx, ThreadPoolExecutor(workers) as ex:
-            return dx.streamed_map(ex, [mk_job(j) for j in jobs], cfg,
-                                   finish, device=device, stats=stats,
-                                   mesh=mesh)
+            out = dx.streamed_map(ex, [mk_job(j) for j in jobs], cfg,
+                                  finish, device=device, stats=stats,
+                                  mesh=mesh, timer=timer)
+        if stats is not None:
+            stats["spans"] = timer.summary()
+        return out
 
     t0 = time.perf_counter()
     one_pass()                      # loads and warms every bucket
@@ -543,15 +549,19 @@ def report(args, res: dict) -> None:
     print(f"# device passes (s, run order, {how}): "
           f"{[round(t, 3) for t in res['pass_s']]}; cold first pass "
           f"{st.get('cold_s', 0):.3f} s", file=sys.stderr)
-    busy_frac = min(1.0, st.get("device_busy_s", 0.0) / dt) if dt else 0.0
+    busy_frac = st.get("device_s", 0.0) / dt if dt else 0.0
+    spans = st.get("spans", {})
+    span_s = {k: spans.get(k, {}).get("seconds", 0.0)
+              for k in ("chunk_wait", "chunk_decode")}
     print(f"# device mode: {args.regions} regions in {dt:.2f}s "
           f"({line['records']} records, host {line['baseline_records']}, "
           f"equal {line['records_equal']}); stage thread-seconds: "
           f"tile_build={st.get('tile_build_s', 0):.2f} "
-          f"device_wait={st.get('device_wait_s', 0):.2f} "
+          f"chunk_wait={span_s['chunk_wait']:.2f} "
+          f"chunk_decode={span_s['chunk_decode']:.2f} "
           f"host_finish={st.get('finish_s', 0):.2f}; "
-          f"dispatch window (first dispatch to last result, host clock) "
-          f"{st.get('device_busy_s', 0):.2f}s ({100 * busy_frac:.0f}% of "
+          f"the chunks' stream time (copy in to copy out, CUDA events) "
+          f"{st.get('device_s', 0):.4f}s ({100 * busy_frac:.2f}% of "
           f"wall), {st.get('n_chunks', 0)} chunks, "
           f"h2d {st.get('h2d_bytes', 0) / 1e6:.1f} MB, "
           f"d2h {st.get('d2h_bytes', 0) / 1e6:.1f} MB, "
@@ -586,7 +596,7 @@ def report_kernel(args, ks: dict | None, st: dict) -> None:
           f"by {ks['bound_by']} ({100 * ks['bound_ms'] / ks['queued_ms']:.1f}"
           f" % of the queued time); launch plan {ks['plan']}; priced at "
           f"every region, {ks['queued_ms'] / 1e3 * args.regions / ks['G']:.3f}"
-          f" s of the {st.get('device_busy_s', 0):.2f} s dispatch window",
+          f" s of the chunks' {st.get('device_s', 0):.4f} s on the stream",
           file=sys.stderr)
 
 

@@ -132,7 +132,7 @@ def main(argv=None) -> int:
         st = logs.get("device_stats", {})
         print(f"# {c}: stage seconds {json.dumps(logs.get('stage_times'))}; "
               + " ".join(f"{k}={st[k]}" for k in (
-                  "n_chunks", "n_host_fallback", "device_busy_s",
+                  "n_chunks", "n_host_fallback", "device_s",
                   "tile_build_s", "finish_s", "tiles_by_encoding")
                   if k in st), file=sys.stderr)
     if r["parity"]:

@@ -33,6 +33,7 @@ import numpy as np
 
 from focalsv_tpu_torch.device import resolve_device
 from focalsv_tpu_torch.ops import align as alignops
+from focalsv_tpu_torch.utils.profiling import NO_TIMER, StageTimer
 
 _active: "DPBatcher | None" = None
 _lock = threading.Lock()
@@ -90,10 +91,16 @@ def _calibrate_native() -> float:
 
 
 class DPBatcher:
+    """``timer`` (a StageTimer) gets the spans ``dp_wait`` (a worker
+    blocked on its job) and ``dp_batch`` (the dispatcher's run of one
+    batch)."""
+
     def __init__(self, max_batch: int = 128, max_wait_ms: float = 2.0,
-                 init_rt_ms: float | None = None, device=None):
+                 init_rt_ms: float | None = None, device=None,
+                 timer: StageTimer = NO_TIMER):
         import os
         self.device = resolve_device(device)
+        self.timer = timer
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
         self.q: queue.Queue[_Job | None] = queue.Queue()
@@ -133,7 +140,8 @@ class DPBatcher:
         job.q_len = len(q)
         job.t_len = len(t)
         self.q.put(job)
-        job.event.wait()
+        with self.timer.stage("dp_wait"):
+            job.event.wait()
         if job.error is not None:
             raise RuntimeError(
                 f"batched DP failed on {self.device} (key={job.key})"
@@ -172,6 +180,10 @@ class DPBatcher:
                         self._run_batch(jobs)
 
     def _run_batch(self, jobs: list[_Job]):
+        with self.timer.stage("dp_batch"):
+            self._run_batch_timed(jobs)
+
+    def _run_batch_timed(self, jobs: list[_Job]):
         import time
         (_, _, band, match, mismatch, gap_open, gap_extend) = jobs[0].key
         B = len(jobs)
@@ -227,16 +239,19 @@ def get_active() -> DPBatcher | None:
 
 @contextlib.contextmanager
 def dp_batching(max_batch: int = 128, max_wait_ms: float = 2.0,
-                init_rt_ms: float | None = None, device=None):
+                init_rt_ms: float | None = None, device=None,
+                timer: StageTimer = NO_TIMER):
     """Activate cross-thread DP batching for the enclosed block.
 
     init_rt_ms seeds the round-trip estimate that routes small jobs to the
-    native host kernel (0 forces everything through the device batch)."""
+    native host kernel (0 forces everything through the device batch);
+    ``timer``: see DPBatcher."""
     global _active
     with _lock:
         prev = _active
         batcher = DPBatcher(max_batch=max_batch, max_wait_ms=max_wait_ms,
-                            init_rt_ms=init_rt_ms, device=device)
+                            init_rt_ms=init_rt_ms, device=device,
+                            timer=timer)
         _active = batcher
     try:
         yield batcher

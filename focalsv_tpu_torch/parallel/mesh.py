@@ -124,11 +124,15 @@ class PendingResult:
     copies queued right behind the step, one per shard, and each of
     ``events`` marks the arrival of one; ``is_ready`` polls them and
     reading the array waits for them.  A CPU result has no event and is
-    ready as soon as it exists."""
+    ready as soon as it exists.  ``started``, a timing event recorded
+    before the copy in, with timing events in ``events``, gives the span
+    on the stream from the copy in to the end of the copy out, the host's
+    issue gaps included (``device_s``)."""
 
-    def __init__(self, host: torch.Tensor, events=()):
+    def __init__(self, host: torch.Tensor, events=(), started=None):
         self.host = host
         self.events = tuple(events)
+        self.started = started
 
     def is_ready(self) -> bool:
         return all(e.query() for e in self.events)
@@ -137,6 +141,14 @@ class PendingResult:
         for e in self.events:
             e.synchronize()
         return self.host
+
+    def device_s(self) -> float:
+        """Seconds on the stream from ``started`` to the last event, once
+        the result has arrived; 0.0 without a timing event."""
+        if self.started is None:
+            return 0.0
+        self.wait()
+        return self.started.elapsed_time(self.events[-1]) / 1e3
 
     def __array__(self, dtype=None, copy=None):
         out = self.wait().numpy()

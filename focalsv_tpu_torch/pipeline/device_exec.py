@@ -44,6 +44,7 @@ from focalsv_tpu_torch.phasing.phase import (PhaseResult, group_reads_by_block,
 from focalsv_tpu_torch.pipeline.region import (RegionResult, finish_region_result,
                                          process_region)
 from focalsv_tpu_torch.utils.logging import get_logger
+from focalsv_tpu_torch.utils.profiling import NO_TIMER, StageTimer
 from focalsv_tpu_torch.device import resolve_device
 from focalsv_tpu_torch.parallel.mesh import PendingResult
 
@@ -316,12 +317,18 @@ def dispatch_packed(buf: np.ndarray, key: tuple, G: int,
     src = torch.from_numpy(buf)
     if device.type != "cuda":
         return PendingResult(step(src, **kw))
-    res = step(src.pin_memory().to(device, non_blocking=True), **kw)
+    src = src.pin_memory()
+    # the chunk's span on its stream, copy in to copy out: the card's work
+    # and the gaps while this thread issues the copies and launches
+    stream = torch.cuda.current_stream(device)
+    started = torch.cuda.Event(enable_timing=True)
+    started.record(stream)
+    res = step(src.to(device, non_blocking=True), **kw)
     host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
     host.copy_(res, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return PendingResult(host, [event])
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(stream)
+    return PendingResult(host, [event], started=started)
 
 
 def pack_chunk(tiles, chunk: list[int], key: tuple, G: int) -> np.ndarray:
@@ -381,7 +388,8 @@ def dispatch_device_chunks(tiles: list[RegionTile], cfg: PipelineConfig,
 
 
 def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
-                 device=None, stats: dict | None = None, mesh=None) -> list:
+                 device=None, stats: dict | None = None, mesh=None, *,
+                 timer: StageTimer) -> list:
     """Fully-pipelined region execution: tile builds (pool), device chunk
     dispatches (as soon as a bucket fills), result decodes and per-region
     finishes (pool) all overlap.
@@ -390,49 +398,63 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
     per-region result (dev is None for host-fallback tiles).  Returns the
     per-index results; indices whose tile job returned None yield None.
 
-    ``stats`` (optional dict) accumulates a stage breakdown: summed
-    thread-seconds per stage (tile_build_s, device_wait_s, finish_s),
-    device dispatch span (device_busy_s: first dispatch -> last result
-    materialized, i.e. the window the chip has work in flight), chunk count,
-    and h2d/d2h transfer bytes; ``tiles_by_encoding`` counts the tiles of
-    each kind ("delta", "dense", "host" for a tile past the bucket bounds)
-    and ``buckets`` each bucket's chunks and regions, by
+    ``timer`` (utils/profiling.StageTimer) gets the spans of the pool's
+    jobs, ``tile_job`` and ``finish_job``; the queue waits of each region,
+    ``dispatch_wait`` (its tile built, its chunk not yet taken out of the
+    bucket) and ``finish_queue`` (its finish submitted, no pool thread free
+    yet); and per chunk ``chunk_pack``, ``chunk_dispatch``, ``chunk_wait``
+    (for the result's arrival) and ``chunk_decode``.
+
+    ``stats`` (optional dict) accumulates a stage breakdown:
+    ``tile_build_s`` and ``finish_s``, the seconds of the ``tile_job`` and
+    ``finish_job`` spans (thread-seconds); ``device_s``, each chunk's span
+    on the stream, from a CUDA event recorded before its copy in to one
+    after its copy out: the card's work and the gaps while the host issues
+    the copies and launches (0 off CUDA and on a mesh of several shards);
+    chunk count, and h2d/d2h transfer bytes; ``tiles_by_encoding`` counts
+    the tiles of each kind ("delta", "dense", "host" for a tile past the
+    bucket bounds) and ``buckets`` each bucket's chunks and regions, by
     "kind-R-L-..." name: {"key": the bucket key, "G", "chunks",
-    "regions"}.
+    "regions"}.  Only the calling thread writes ``stats``; the pool
+    threads record into ``timer``.
     """
     import concurrent.futures as cf
     import time as _time
 
     device, n_devices = _device_of(device, mesh)
     st = stats if stats is not None else {}
-    for k in ("tile_build_s", "device_wait_s", "finish_s", "device_busy_s",
-              "h2d_bytes", "d2h_bytes"):
+    for k in ("tile_build_s", "finish_s", "device_s", "h2d_bytes",
+              "d2h_bytes"):
         st.setdefault(k, 0.0)
     st.setdefault("n_chunks", 0)
     st.setdefault("n_host_fallback", 0)
     st.setdefault("tiles_by_encoding", {})
     st.setdefault("buckets", {})
+    tile_s0 = timer.seconds("tile_job")
+    finish_s0 = timer.seconds("finish_job")
     n = len(tile_jobs)
     tiles: list[RegionTile | None] = [None] * n
+    built_at: list[float] = [0.0] * n
 
     def timed_tile(j):
-        t0 = _time.perf_counter()
-        out = j()
-        st["tile_build_s"] += _time.perf_counter() - t0
-        return out
+        with timer.stage("tile_job"):
+            out = j()
+        return out, _time.perf_counter()
 
-    def timed_finish(i, tile, dev):
-        t0 = _time.perf_counter()
-        out = finish(i, tile, dev)
-        st["finish_s"] += _time.perf_counter() - t0
-        return out
+    def timed_finish(i, tile, dev, submitted):
+        timer.add("finish_queue", _time.perf_counter() - submitted)
+        with timer.stage("finish_job"):
+            return finish(i, tile, dev)
+
+    def submit_finish(i, dev):
+        fin_futs[i] = pool.submit(timed_finish, i, tiles[i], dev,
+                                  _time.perf_counter())
 
     fut_to_idx = {pool.submit(timed_tile, j): i
                   for i, j in enumerate(tile_jobs)}
     buckets: dict[tuple[int, int, int], list[int]] = {}
     pending: list[tuple[list[int], tuple, object]] = []
     fin_futs: dict[int, object] = {}
-    first_dispatch = [None]
 
     def flush(key, force: bool):
         # tails pad to the full batch shape (ONE compiled shape per
@@ -441,9 +463,13 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
         idxs = buckets.get(key, [])
         while idxs and (len(idxs) >= G or force):
             chunk, idxs = idxs[:G], idxs[G:]
-            if first_dispatch[0] is None:
-                first_dispatch[0] = _time.perf_counter()
-            res = _dispatch_one(tiles, chunk, key, G, cfg, device, mesh)
+            now = _time.perf_counter()
+            for i in chunk:
+                timer.add("dispatch_wait", now - built_at[i])
+            with timer.stage("chunk_pack"):
+                buf = pack_chunk(tiles, chunk, key, G)
+            with timer.stage("chunk_dispatch"):
+                res = dispatch_packed(buf, key, G, cfg, device, mesh)
             st["n_chunks"] += 1
             st["h2d_bytes"] += _h2d_bytes(key, G)
             b = st["buckets"].setdefault("-".join(map(str, key)), dict(
@@ -454,13 +480,15 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
         buckets[key] = idxs
 
     def decode_and_finish(chunk, key, res):
-        t0 = _time.perf_counter()
-        outs = decode_chunk(tiles, chunk, key, res, cfg)
-        st["device_wait_s"] += _time.perf_counter() - t0
+        with timer.stage("chunk_wait"):
+            res.wait()
+        with timer.stage("chunk_decode"):
+            outs = decode_chunk(tiles, chunk, key, res, cfg)
+        st["device_s"] += res.device_s()
         st["d2h_bytes"] += len(chunk) * _d2h_bytes_per_region(key, cfg)
         st["n_host_fallback"] += sum(1 for i in chunk if i not in outs)
         for i in chunk:
-            fin_futs[i] = pool.submit(timed_finish, i, tiles[i], outs.get(i))
+            submit_finish(i, outs.get(i))
 
     def drain_ready():
         # decode any chunk whose device result (and async d2h copy) has
@@ -475,7 +503,7 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
 
     for fut in cf.as_completed(fut_to_idx):
         i = fut_to_idx[fut]
-        tile = fut.result()
+        tile, built_at[i] = fut.result()
         tiles[i] = tile
         if tile is None:
             continue
@@ -486,7 +514,7 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
         if key is None:
             # host-fallback tile: start its finish immediately
             st["n_host_fallback"] += 1
-            fin_futs[i] = pool.submit(timed_finish, i, tile, None)
+            submit_finish(i, None)
             continue
         buckets.setdefault(key, []).append(i)
         flush(key, force=False)
@@ -496,10 +524,11 @@ def streamed_map(pool, tile_jobs: list, cfg: PipelineConfig, finish,
     # decode remaining chunks in dispatch order (d2h already in flight)
     for chunk, key, res in pending:
         decode_and_finish(chunk, key, res)
-    if first_dispatch[0] is not None:
-        st["device_busy_s"] += _time.perf_counter() - first_dispatch[0]
-    return [fin_futs[i].result() if i in fin_futs else None
-            for i in range(n)]
+    out = [fin_futs[i].result() if i in fin_futs else None
+           for i in range(n)]
+    st["tile_build_s"] += timer.seconds("tile_job") - tile_s0
+    st["finish_s"] += timer.seconds("finish_job") - finish_s0
+    return out
 
 
 def decode_chunk(tiles: list[RegionTile], chunk: list[int], key: tuple,
@@ -545,8 +574,22 @@ def run_device_step(tiles: list[RegionTile], cfg: PipelineConfig,
 
 
 def finish_tile(tile: RegionTile, dev, cfg: PipelineConfig,
-                apply_fp_filter: bool = False) -> RegionResult | None:
-    """Host completion of one region from the device step's outputs.
+                apply_fp_filter: bool = False,
+                timer: StageTimer = NO_TIMER) -> RegionResult:
+    """Host completion of one region from the device step's outputs: its
+    phasing and contigs (span ``finish_phase``), then its calls
+    (``finish_call``: finish_region_result)."""
+    with timer.stage("finish_phase"):
+        res = _tile_contigs(tile, dev, cfg)
+    with timer.stage("finish_call"):
+        finish_region_result(res, tile.reads, tile.ref_codes, tile.start,
+                             tile.chrom, cfg, apply_fp_filter)
+    return res
+
+
+def _tile_contigs(tile: RegionTile, dev, cfg: PipelineConfig
+                  ) -> RegionResult:
+    """A region's phasing and contigs from the device step's outputs.
 
     Phasing (including multi-block per-block MEC) comes entirely from the
     device step; single-block regions also take the device consensus-vote
@@ -638,17 +681,17 @@ def finish_tile(tile: RegionTile, dev, cfg: PipelineConfig,
     from focalsv_tpu_torch.phasing.phase import phased_snv_records
     res.snv_records = phased_snv_records(pr, tile.ref_codes, start, chrom)
     res.contigs_hp1, res.contigs_hp2 = hp1, hp2
-    finish_region_result(res, tile.reads, tile.ref_codes, start, chrom, cfg,
-                         apply_fp_filter)
     return res
 
 
 def process_region_device(tile: RegionTile, dev, cfg: PipelineConfig,
-                          apply_fp_filter: bool = False) -> RegionResult:
-    """finish_tile with the host fallback folded in (dev may be None)."""
+                          apply_fp_filter: bool = False,
+                          timer: StageTimer = NO_TIMER) -> RegionResult:
+    """finish_tile with the host fallback folded in (dev may be None); the
+    fallback is the span ``finish_host_fallback`` of ``timer``."""
     if dev is not None:
-        res = finish_tile(tile, dev, cfg, apply_fp_filter)
-        if res is not None:
-            return res
-    return process_region(tile.reads, tile.ref_codes, tile.start, tile.chrom,
-                          cfg, apply_fp_filter=apply_fp_filter)
+        return finish_tile(tile, dev, cfg, apply_fp_filter, timer)
+    with timer.stage("finish_host_fallback"):
+        return process_region(tile.reads, tile.ref_codes, tile.start,
+                              tile.chrom, cfg,
+                              apply_fp_filter=apply_fp_filter)

@@ -33,6 +33,7 @@ from focalsv_tpu_torch.refine.driver import refine_records
 from focalsv_tpu_torch.regions.detect import detect_regions
 from focalsv_tpu_torch.scan.read_scan import calls_to_vcf, scan_chromosome
 from focalsv_tpu_torch.utils.logging import get_logger
+from focalsv_tpu_torch.utils.profiling import StageTimer
 
 logger = get_logger("pipeline")
 
@@ -152,9 +153,11 @@ def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
         if end <= start:
             return None
         try:
-            reads = list(bam.fetch(chrom, start, end))
-            ref_codes = fasta.fetch(chrom, start, end)
-            return dx.build_tile(reads, ref_codes, start, chrom, cfg)
+            with timer.stage("region_fetch"):
+                reads = list(bam.fetch(chrom, start, end))
+                ref_codes = fasta.fetch(chrom, start, end)
+            with timer.stage("region_tile"):
+                return dx.build_tile(reads, ref_codes, start, chrom, cfg)
         except Exception:
             logger.exception("region %s tiling failed; skipping",
                              region.name())
@@ -163,17 +166,20 @@ def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
 
     def finish(i: int, tile, dev):
         try:
-            rres = dx.process_region_device(tile, dev, cfg,
-                                            apply_fp_filter=False)
+            with timer.stage("region_finish"):
+                rres = dx.process_region_device(tile, dev, cfg,
+                                                apply_fp_filter=False,
+                                                timer=timer)
         except Exception:
             logger.exception("region %s failed; skipping",
                              regions[i].name())
             failures.append(regions[i].name())
             return None
         if out_dir:
-            rdir = os.path.join(out_dir, "regions", regions[i].name())
-            os.makedirs(rdir, exist_ok=True)
-            _write_region_artifacts(rdir, rres, chrom, chrom_len)
+            with timer.stage("region_write"):
+                rdir = os.path.join(out_dir, "regions", regions[i].name())
+                os.makedirs(rdir, exist_ok=True)
+                _write_region_artifacts(rdir, rres, chrom, chrom_len)
         return rres
 
     if mesh is not None:
@@ -188,7 +194,7 @@ def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
     batch_ctx = contextlib.nullcontext()
     if _dp_batching_enabled(cfg, device):
         from focalsv_tpu_torch.parallel.batch_executor import dp_batching
-        batch_ctx = dp_batching(device=device)
+        batch_ctx = dp_batching(device=device, timer=timer)
     # fully-pipelined streaming: tile builds, device dispatches, decodes and
     # per-region finishes all overlap (device_exec.streamed_map)
     tile_jobs = [(lambda r=r: fetch_and_tile(r)) for r in regions]
@@ -196,7 +202,7 @@ def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
     with timer.stage("regions_streamed"), batch_ctx as batcher, \
             ThreadPoolExecutor(max_workers=max(num_workers, 1)) as ex:
         results = dx.streamed_map(ex, tile_jobs, cfg, finish, device=device,
-                                  stats=stats, mesh=mesh)
+                                  stats=stats, mesh=mesh, timer=timer)
     _write_device_stats(out_dir, stats, batcher)
     return results
 
@@ -228,7 +234,6 @@ def process_chromosome(
     device asked for, the cards present and ``process_count`` (the processes
     of the run).
     """
-    from focalsv_tpu_torch.utils.profiling import StageTimer
     timer = StageTimer()
     t0 = time.perf_counter()
     res = ChromosomeResult(chrom=chrom, n_regions=len(regions))
@@ -465,7 +470,6 @@ def run_auto_mode(
     Step 0's parts (load, coverage, scan, prior, detect, bed) are timed
     into out_dir/log/stage_times.json; each chromosome's target mode
     writes its own under out_dir/<chrom>/log/."""
-    from focalsv_tpu_torch.utils.profiling import StageTimer
     timer = StageTimer()
     os.makedirs(out_dir, exist_ok=True)
     with timer.stage("load"):

@@ -36,7 +36,6 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import queue as queue_mod
-import time
 import traceback
 
 import numpy as np
@@ -224,7 +223,7 @@ class MpRegionExecutor:
         cfg, device, mesh = self.cfg, self.device, self.mesh
         n_devices = self.n_devices
         st = stats if stats is not None else {}
-        for k in ("device_busy_s", "h2d_bytes", "d2h_bytes", "tile_build_s",
+        for k in ("device_s", "h2d_bytes", "d2h_bytes", "tile_build_s",
                   "finish_s"):
             st.setdefault(k, 0.0)
         st.setdefault("n_chunks", 0)
@@ -243,8 +242,6 @@ class MpRegionExecutor:
         done_build = 0
         finished: dict[int, tuple] = {}
         child_stats: list[dict] = []
-        first_dispatch = [None]
-        last_result = [None]
 
         def flush(key, force: bool):
             # tails pad to the full batch shape, as in streamed_map
@@ -254,8 +251,6 @@ class MpRegionExecutor:
                 take, items = items[:G], items[G:]
                 idxs = [i for i, _ in take]
                 stubs = [s for _, s in take]
-                if first_dispatch[0] is None:
-                    first_dispatch[0] = time.perf_counter()
                 buf = dx.pack_chunk(stubs, list(range(len(stubs))), key, G)
                 res = dx.dispatch_packed(buf, key, G, cfg, device, mesh)
                 st["n_chunks"] += 1
@@ -265,7 +260,7 @@ class MpRegionExecutor:
 
         def route(idxs, key, G, res):
             bufs = np.asarray(res)
-            last_result[0] = time.perf_counter()
+            st["device_s"] += res.device_s()
             st["d2h_bytes"] += len(idxs) * dx._d2h_bytes_per_region(key, cfg)
             for g, idx in enumerate(idxs):
                 self.cmd_qs[owner[idx]].put(
@@ -320,8 +315,6 @@ class MpRegionExecutor:
             while pending and done_build == self.n_children:
                 idxs, key, G, res = pending.pop(0)
                 route(idxs, key, G, res)
-        if first_dispatch[0] is not None and last_result[0] is not None:
-            st["device_busy_s"] += last_result[0] - first_dispatch[0]
         for cs in child_stats:
             for k, v in cs.items():
                 st[k] = st.get(k, 0) + v

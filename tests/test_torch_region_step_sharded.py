@@ -23,6 +23,7 @@ from focalsv_tpu_torch.parallel import region_step as trs
 from focalsv_tpu_torch.parallel import wire
 from focalsv_tpu_torch.pipeline import device_exec as tdx
 from focalsv_tpu_torch.testing import simulate as sim
+from focalsv_tpu_torch.utils.profiling import StageTimer
 
 KW = dict(max_sites=16, mec_iters=4)
 G, R, L, W = 4, 12, 512, 512
@@ -348,7 +349,7 @@ def test_streamed_map_on_a_mesh_equals_one_device():
         stats = {}
         with ThreadPoolExecutor(max_workers=2) as pool:
             out = tdx.streamed_map(pool, jobs, tcfg, finish, stats=stats,
-                                   mesh=mesh)
+                                   mesh=mesh, timer=StageTimer())
         assert out == list(range(5))
         return seen, stats
 
