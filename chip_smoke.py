@@ -255,7 +255,8 @@ def host_libraries() -> None:
     t0 = time.perf_counter()
     loaded = {"DP/chain": native.get_lib() is not None,
               "BAM parse/tile": native.get_parse_lib() is not None,
-              "BAM scan": native.get_scan_lib() is not None}
+              "BAM scan": native.get_scan_lib() is not None,
+              "BAM write": native.get_write_lib() is not None}
     log(f"[host] native libraries in {native.BUILD_DIR}: {loaded} "
         f"({time.perf_counter() - t0:.1f} s)")
     missing = [k for k, ok in loaded.items() if not ok]

@@ -14,6 +14,7 @@ tiling.  Supports:
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import struct
 import zlib
@@ -725,8 +726,98 @@ class BamWriter:
     def write(self, rec: BamRecord):
         self.w.write(encode_record(rec, len(self.ref_names)))
 
+    def write_records(self, records, hp, ps, ref_id: int, timer) -> None:
+        """Write ``records`` in order, then close the file: each on this
+        file's reference ``ref_id`` and unpaired (no mate reference or
+        position, template length 0), with HP ``hp[i]`` and PS ``ps[i]``
+        tags beside its own where hp[i] > 0.  That is the form of a
+        region's BAM of one reference.
+
+        One native call (native/bamwrite.cpp) encodes the records, deflates
+        the blocks and writes them without the interpreter lock: span
+        ``bam_write_native`` of ``timer`` (a StageTimer, or NO_TIMER).
+        Without the library, or where it refuses a record and so wrote
+        nothing, each record goes through write(): span ``bam_write_py``.
+        The file is the same either way.  A failed write raises OSError."""
+        from focalsv_tpu_torch import native
+        records = list(records)
+        hp = np.asarray(hp, np.int64)[:len(records)]
+        ps = np.asarray(ps, np.int64)[:len(records)]
+        if native.get_write_lib() is not None:
+            with timer.stage("bam_write_native"):
+                cols = _record_columns(records, hp, ps, ref_id)
+                f = self.w.f
+                f.flush()
+                if cols is not None and native.write_bam_records(
+                        f.fileno(), bytes(self.w.buf), *cols,
+                        level=self.w.level):
+                    self.w.buf = bytearray()
+                    f.close()
+                    return
+        with timer.stage("bam_write_py"):
+            for i, rec in enumerate(records):
+                tags = dict(rec.tags)
+                if hp[i] > 0:
+                    tags["HP"] = int(hp[i])
+                    tags["PS"] = int(ps[i])
+                self.write(dataclasses.replace(
+                    rec, ref_id=ref_id, next_ref_id=-1, next_pos=-1, tlen=0,
+                    tags=tags))
+            self.close()
+
     def close(self):
         self.w.close()
+
+
+def _record_columns(records, hp, ps, ref_id):
+    """bamwrite.cpp's columns for write_records, or None where a record has
+    what only encode_record handles (it then raises as it always has)."""
+    n = len(records)
+    if min(len(hp), len(ps)) < n:
+        return None
+    fixed = np.empty((n, 7), np.int64)
+    fixed[:, 0] = ref_id
+    fixed[:, 4:] = (-1, -1, 0)
+    try:
+        fixed[:, 1:4] = np.array([(r.pos, r.mapq, r.flag) for r in records],
+                                 np.int64).reshape(n, 3)
+        names = [r.name for r in records]
+        name_blob = np.frombuffer("".join(names).encode("ascii"), np.uint8)
+    except (OverflowError, TypeError, ValueError):   # UnicodeEncodeError too
+        return None
+    cigars, seqs, quals, tags = [], [], [], []
+    for i, r in enumerate(records):
+        if r.cigar.dtype != np.int32 or r.seq.dtype != np.uint8 \
+                or r.qual.dtype != np.uint8:
+            return None
+        cigars.append(r.cigar.reshape(-1, 2))
+        seqs.append(r.seq)
+        quals.append(r.qual)
+        own = r.tags
+        if own:
+            own = dict(own)
+            if hp[i] > 0:
+                own["HP"] = int(hp[i])
+                own["PS"] = int(ps[i])
+            tags.append(_encode_tags(own))
+        else:       # bamwrite.cpp writes HP and PS of a read with no tags
+            tags.append(b"")
+
+    def offsets(lens):
+        off = np.zeros(n + 1, np.int64)
+        np.cumsum(np.fromiter(lens, np.int64, n), out=off[1:])
+        return off
+
+    def joined(parts, empty):
+        return np.ascontiguousarray(np.concatenate([empty] + parts))
+
+    return (fixed, name_blob, offsets(map(len, names)),
+            joined(cigars, np.zeros((0, 2), np.int32)),
+            offsets(c.shape[0] for c in cigars),
+            joined(seqs, np.zeros(0, np.uint8)), offsets(map(len, seqs)),
+            joined(quals, np.zeros(0, np.uint8)), offsets(map(len, quals)),
+            np.frombuffer(b"".join(tags), np.uint8), offsets(map(len, tags)),
+            np.ascontiguousarray(hp), np.ascontiguousarray(ps))
 
 
 def build_bai(bam_path: str, out_path: str | None = None) -> str:

@@ -18,6 +18,7 @@ import hashlib
 import os
 import platform
 import subprocess
+import threading
 
 import numpy as np
 
@@ -201,6 +202,76 @@ def get_parse_lib():
     except OSError:
         _parse_lib = None
     return _parse_lib
+
+
+_WRITE_SRC = os.path.join(_DIR, "bamwrite.cpp")
+_WRITE_SO = _so_path("libfocalsv_bamwrite", _WRITE_SRC)
+_write_lib = None
+_write_tried = False
+_write_lock = threading.Lock()
+
+
+def get_write_lib():
+    """The native BAM writer library (bamwrite.cpp), or None."""
+    global _write_lib, _write_tried
+    with _write_lock:    # the region writers of a pool ask at once
+        if _write_tried:
+            return _write_lib
+        _write_tried = True
+        if not os.path.exists(_WRITE_SO):
+            try:
+                _compile(["g++", "-O3", "-shared", "-fPIC", _WRITE_SRC,
+                          "-lz"], _WRITE_SO, 120)
+            except Exception:
+                return None
+        try:
+            lib = ctypes.CDLL(_WRITE_SO, use_errno=True)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            lib.bamwrite_records.restype = ctypes.c_int64
+            lib.bamwrite_records.argtypes = (
+                [ctypes.c_int, u8p, ctypes.c_int64, ctypes.c_int64, i64p]
+                + [u8p, i64p, i32p, i64p, u8p, i64p, u8p, i64p, u8p, i64p]
+                + [i64p, i64p, ctypes.c_int])
+            _write_lib = lib
+        except OSError:
+            _write_lib = None
+        return _write_lib
+
+
+_BAMWRITE_REFUSED, _BAMWRITE_DEFLATE = -1, -2
+
+
+def write_bam_records(fd: int, prefix: bytes, fixed, names, name_off,
+                      cigar, cig_off, seq, seq_off, qual, qual_off, tags,
+                      tag_off, hp, ps, level: int) -> bool | None:
+    """bamwrite.cpp's ``bamwrite_records`` on the columns (see there):
+    True when the file is written, False when a record was refused and
+    nothing written, None when the library is unavailable.  Raises
+    RuntimeError when zlib fails (nothing written) and OSError when the
+    write fails (part of the file may be written)."""
+    lib = get_write_lib()
+    if lib is None:
+        return None
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    pre = np.frombuffer(prefix, np.uint8)
+    P = lambda a, t: a.ctypes.data_as(t)        # noqa: E731
+    rc = int(lib.bamwrite_records(
+        fd, P(pre, u8p), pre.size, fixed.shape[0], P(fixed, i64p),
+        P(names, u8p), P(name_off, i64p), P(cigar, i32p), P(cig_off, i64p),
+        P(seq, u8p), P(seq_off, i64p), P(qual, u8p), P(qual_off, i64p),
+        P(tags, u8p), P(tag_off, i64p), P(hp, i64p), P(ps, i64p), level))
+    if rc == _BAMWRITE_REFUSED:
+        return False
+    if rc == _BAMWRITE_DEFLATE:
+        raise RuntimeError("bamwrite: zlib failed to deflate a block")
+    if rc != 0:
+        err = ctypes.get_errno()
+        raise OSError(err, f"bamwrite: write failed: {os.strerror(err)}")
+    return True
 
 
 def parse_records_batch(data) -> tuple | None:

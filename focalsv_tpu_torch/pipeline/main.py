@@ -33,13 +33,13 @@ from focalsv_tpu_torch.refine.driver import refine_records
 from focalsv_tpu_torch.regions.detect import detect_regions
 from focalsv_tpu_torch.scan.read_scan import calls_to_vcf, scan_chromosome
 from focalsv_tpu_torch.utils.logging import get_logger
-from focalsv_tpu_torch.utils.profiling import StageTimer
+from focalsv_tpu_torch.utils.profiling import NO_TIMER, StageTimer
 
 logger = get_logger("pipeline")
 
 
 def _write_region_artifacts(rdir: str, rres: RegionResult, chrom: str,
-                            chrom_len: int) -> None:
+                            chrom_len: int, timer=NO_TIMER) -> None:
     """Reference-layout region artifacts: region_phased.bam with HP/PS tags +
     region_phased.vcf with the phased het SNVs (longshot-style, consumed by
     target-mode complex SV tooling) and the per-phase-block haplotype FASTAs
@@ -52,16 +52,8 @@ def _write_region_artifacts(rdir: str, rres: RegionResult, chrom: str,
         if rres.usable_reads and rres.phase_hp is not None:
             w = bamio.BamWriter(os.path.join(rdir, "region_phased.bam"),
                                 [chrom], [chrom_len])
-            for i, rec in enumerate(rres.usable_reads):
-                tags = dict(rec.tags)
-                if rres.phase_hp[i] > 0:
-                    tags["HP"] = int(rres.phase_hp[i])
-                    tags["PS"] = int(rres.phase_ps[i])
-                w.write(bamio.BamRecord(
-                    name=rec.name, flag=rec.flag, ref_id=0, pos=rec.pos,
-                    mapq=rec.mapq, cigar=rec.cigar, seq=rec.seq,
-                    qual=rec.qual, tags=tags))
-            w.close()
+            w.write_records(rres.usable_reads, rres.phase_hp, rres.phase_ps,
+                            ref_id=0, timer=timer)
         for hp_idx, contigs in ((1, rres.contigs_hp1), (2, rres.contigs_hp2)):
             if contigs:
                 write_fasta(os.path.join(rdir, f"HP{hp_idx}.fa"),
@@ -179,7 +171,7 @@ def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
             with timer.stage("region_write"):
                 rdir = os.path.join(out_dir, "regions", regions[i].name())
                 os.makedirs(rdir, exist_ok=True)
-                _write_region_artifacts(rdir, rres, chrom, chrom_len)
+                _write_region_artifacts(rdir, rres, chrom, chrom_len, timer)
         return rres
 
     if mesh is not None:
@@ -264,7 +256,7 @@ def process_chromosome(
         if out_dir:
             rdir = os.path.join(out_dir, "regions", region.name())
             os.makedirs(rdir, exist_ok=True)
-            _write_region_artifacts(rdir, rres, chrom, chrom_len)
+            _write_region_artifacts(rdir, rres, chrom, chrom_len, timer)
         return rres
 
     if cfg.execution.mode == "device":

@@ -56,7 +56,9 @@ DIFFERENT = {
     "testing/dist_worker.py": "joins a torch.distributed group instead of "
                               "jax.distributed, with --backend and --device, "
                               "and leaves it before it returns",
-    "io/bam.py": "fetch scans once from the first index chunk",
+    "io/bam.py": "fetch scans once from the first index chunk; "
+                 "BamWriter.write_records writes a region BAM in one native "
+                 "call (native/bamwrite.cpp)",
 }
 
 # functions of forked modules that stay the reference's own lines
